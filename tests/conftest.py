@@ -21,3 +21,11 @@ import jax
 
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (the port's kernel tests); skips "
+        "inside the test where torch.cuda.is_available() is false",
+    )
