@@ -15,6 +15,26 @@ It imports nothing of JAX.  Phases, each raising on failure:
    succeed in <= 20 restarts, the kernel must have launched exactly
    ``num_matvec + 2`` times (every matvec, rhs and postprocess), and the
    lambda residual recomputed with the plain cycle must be <= 1.2e-4.
+4. The grouped-S layout (b) against its plain version at the
+   ``ddh_unstructured_square`` transfer-probe shape (S (8, 168, 168), 960 rows
+   in runs of 120, nt 1,717), and the per-row layout (c) (each row tiled x8
+   onto (b)) at that DDH's own shape; < 2e-4 relative to the max, padded
+   slots exactly 0, CUDA-event times for both.
+5. The flagship transfer solve ``run_ddh(nx=128, deg=3, transfer=True)``:
+   prepare (transfer + io probes, layout (a)), then a solve that launches no
+   kernel (checked by solving again on the prepared operator); <= 20
+   restarts, matvecs within one restart of the JAX run's 366, plain-cycle
+   lambda residual <= 1.2e-4.
+6. ``run_config(ddh_unstructured_square)`` at full size: its probes run
+   layout (b) (launches > 0), the solve none; <= 100 restarts, matvecs
+   within two restarts of the JAX run's 668, plain-cycle residual <= 1.2e-4.
+
+Every kernel count is set to 0 just before each main-path run (phases 3, 5,
+6) and read just after; the ``launches`` of a layout in the JSON line is the
+sum over those runs.  ``bound_ms`` is the larger of the padded-shape FP32 FMA
+work over 67 TFLOP/s and the bytes read and written once over 3.35 TB/s
+(H100 SXM peaks); no single PyTorch call computes a WaveHoltz cycle, so
+``library_ms`` is null.
 
 Output: diagnostics, then a ``{"kernels": [...]}`` JSON line, the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Exits
@@ -53,6 +73,111 @@ def _rel_max(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
 
 
+PEAK_FP32_FLOPS = 67e12  # H100 SXM, FP32 outside the tensor cores
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+
+
+def _cycle_bound(S, rows: int, pad: int, nt: int, wh_maxit: int) -> tuple[float, str]:
+    """Least time of one cycle on these operands: the padded-shape FMA work
+    (two (rows, pad) x (pad, pad) products per step) against the FP32 peak,
+    or the bytes read (S, F, G, Ha, mi, tables) and written (u, v) once
+    against the memory rate, whichever is larger."""
+    flop = 2.0 * 2 * wh_maxit * nt * rows * pad * pad
+    nbytes = 4.0 * (S.numel() + 6 * rows * pad + 5 * nt)
+    t_ops, t_bytes = flop / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _compare(wc, p, F, G, wh_maxit, pad_mask, what, **kw):
+    """Kernel vs plain on the same inputs; returns (max abs err, kernel ms,
+    plain ms).  Raises on a relative error >= 2e-4 or non-zero padding."""
+    import torch
+
+    u_k, v_k = wc.wave_cycle(p, F, G, wh_maxit, **kw)
+    torch.cuda.synchronize()
+    u_p, v_p = wc.wave_cycle_plain(p, F, G, wh_maxit, **kw)
+    err_u, err_v = _rel_max(u_k, u_p), _rel_max(v_k, v_p)
+    abs_err = max(float((u_k - u_p).abs().max()), float((v_k - v_p).abs().max()))
+    if not (np.isfinite([err_u, err_v]).all() and err_u < 2e-4 and err_v < 2e-4):
+        _fail(f"{what}: kernel disagrees with the plain cycle: rel u {err_u:.3e}, v {err_v:.3e}")
+    if bool((u_k[pad_mask] != 0).any()) or bool((v_k[pad_mask] != 0).any()):
+        _fail(f"{what}: kernel wrote non-zero values into padded slots")
+    ms = _cuda_ms(lambda: wc.wave_cycle(p, F, G, wh_maxit, **kw), reps=3)
+    plain_ms = _cuda_ms(lambda: wc.wave_cycle_plain(p, F, G, wh_maxit, **kw), reps=1)
+    print(f"{what}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms per cycle; "
+          f"rel err u {err_u:.3e} v {err_v:.3e}, max abs err {abs_err:.3e}")
+    return abs_err, ms, plain_ms
+
+
+def _masked_normal(rng, mask, dev):
+    import torch
+
+    return torch.from_numpy((rng.standard_normal(mask.shape) * mask).astype(np.float32)).to(dev)
+
+
+def _plain_residual(wc, ddh, b, lam) -> float:
+    """||Y - A(x)|| / ||Y|| with rhs and action on the direct path through
+    the plain cycle."""
+    import torch
+
+    from cuddhelmholtz_tpu_torch.solvers.ddh import ddh_action, ddh_rhs
+
+    Y = ddh_rhs(ddh.params, b, ddh.g_ndof, ddh.n_lambda, wh_maxit=ddh.wh_maxit,
+                cycle=wc.wave_cycle_plain)
+    AX = ddh_action(ddh.params, lam, n_own=ddh.n_own, wh_maxit=ddh.wh_maxit,
+                    cycle=wc.wave_cycle_plain)
+    return float(torch.linalg.vector_norm(Y - AX) / torch.linalg.vector_norm(Y))
+
+
+def _transfer_run(wc, run, what, max_restarts, jax_matvecs, matvec_slack, gm):
+    """Drive one transfer-path run; check it and return (result, launches by
+    layout during the run)."""
+    import torch
+
+    from cuddhelmholtz_tpu_torch.examples.drivers import point_sources
+    from cuddhelmholtz_tpu_torch.models.helmholtz import helmholtz_rhs
+
+    wc.reset_launches()
+    res = run()
+    launches = dict(wc.wave_cycle.launches)
+    ddh = res.extra["ddh"]
+    pre = res.extra["precompute"]
+    omega = res.extra["omega"]
+    b = helmholtz_rhs(ddh.space, lambda xy: point_sources(xy, omega)).to(ddh.gmask.device)
+    # the same solve again on the prepared operator: it must launch no kernel
+    wc.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out2, _ = ddh.solver(gm.m, gm.maxit, gm.tol)(b)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    solve_launches = sum(wc.wave_cycle.launches.values())
+    print(f"{what}: success={res.success} restarts={res.num_iter} matvecs={res.num_matvec} "
+          f"solve {res.seconds:.3f} s (again: {warm_s:.3f} s, {out2.num_iter} restarts / "
+          f"{out2.num_matvec} matvecs), setup {res.extra['setup_seconds']:.2f} s; prepare: "
+          f"transfer {pre['transfer_seconds']:.3f} s ({pre['transfer_rows']} rows, "
+          f"{pre['transfer_layout']}), io {pre['io_seconds']:.3f} s ({pre['io_rows']} rows, "
+          f"{pre['io_layout']}), nu={pre['transfer_nu']} of {res.extra['n_domains']} domains; "
+          f"launches during run {launches}, during the repeated solve {solve_launches}; "
+          f"residual history {res.res_norm[0]:.6e} -> {res.res_norm[-1]:.6e}")
+    print(f"{what} precompute stats: {json.dumps(pre)}")
+    if not res.success:
+        _fail(f"{what}: solve did not converge")
+    if res.num_iter > max_restarts:
+        _fail(f"{what}: {res.num_iter} restarts (> {max_restarts})")
+    if abs(res.num_matvec - jax_matvecs) > matvec_slack:
+        _fail(f"{what}: {res.num_matvec} matvecs, JAX {jax_matvecs} (+-{matvec_slack})")
+    if solve_launches != 0:
+        _fail(f"{what}: the repeated solve launched {solve_launches} kernels")
+    if res.solution.shape != (2 * res.extra["ndof"],) or not np.isfinite(res.solution).all():
+        _fail(f"{what}: solution has shape {res.solution.shape} or non-finite values")
+    resid = _plain_residual(wc, ddh, b, res.extra["lam"])
+    print(f"{what} plain-cycle check: ||Y - A(x)|| / ||Y|| = {resid:.3e}")
+    if not resid <= 1.2 * gm.tol:
+        _fail(f"{what}: plain-cycle residual {resid:.3e} > {1.2 * gm.tol:.2e}")
+    return res, launches
+
+
 def main() -> int:
     import torch
 
@@ -61,17 +186,21 @@ def main() -> int:
         return 1
 
     from cuddhelmholtz_tpu_torch.config import DDH_STRUCTURED as cfg
+    from cuddhelmholtz_tpu_torch.config import DDH_UNSTRUCTURED_SQUARE as ucfg
     from cuddhelmholtz_tpu_torch.examples.drivers import (
         point_sources,
+        run_config,
         run_ddh,
         wave_speed_coeff,
     )
+    from cuddhelmholtz_tpu_torch.mesh.io import load_unstructured_square
     from cuddhelmholtz_tpu_torch.mesh.mesh2d import Mesh2D
     from cuddhelmholtz_tpu_torch.models.helmholtz import helmholtz_rhs
     from cuddhelmholtz_tpu_torch.ops.cuda import wave_cycle as wc
     from cuddhelmholtz_tpu_torch.ops.functional import linear_functional
     from cuddhelmholtz_tpu_torch.ops.mass import apply_diag_inv_mass, make_diag_inv_mass_op
-    from cuddhelmholtz_tpu_torch.solvers.ddh import DDH, ddh_action, ddh_rhs
+    from cuddhelmholtz_tpu_torch.solvers.ddh import DDH
+    from cuddhelmholtz_tpu_torch.spaces.ensemble import coordinate_bisection_labels
     from cuddhelmholtz_tpu_torch.spaces.h1 import H1Space
     from cuddhelmholtz_tpu_torch.utils.basis import Basis
 
@@ -111,28 +240,19 @@ def main() -> int:
     F = torch.from_numpy((rng.standard_normal(gmask.shape) * gmask).astype(np.float32)).to(dev)
     G = torch.from_numpy((rng.standard_normal(gmask.shape) * gmask).astype(np.float32)).to(dev)
 
-    u_k, v_k = wc.wave_cycle(p, F, G, ddh.wh_maxit)
-    torch.cuda.synchronize()
-    u_p, v_p = wc.wave_cycle_plain(p, F, G, ddh.wh_maxit)
-    err_u, err_v = _rel_max(u_k, u_p), _rel_max(v_k, v_p)
-    abs_err = max(float((u_k - u_p).abs().max()), float((v_k - v_p).abs().max()))
-    if not (np.isfinite([err_u, err_v]).all() and err_u < 2e-4 and err_v < 2e-4):
-        _fail(f"kernel disagrees with the plain cycle: rel u {err_u:.3e}, v {err_v:.3e}")
-    if bool((u_k[ddh.gmask == 0] != 0).any()) or bool((v_k[ddh.gmask == 0] != 0).any()):
-        _fail("kernel wrote non-zero values into padded slots")
-    ms = _cuda_ms(lambda: wc.wave_cycle(p, F, G, ddh.wh_maxit), reps=5)
-    plain_ms = _cuda_ms(lambda: wc.wave_cycle_plain(p, F, G, ddh.wh_maxit), reps=1)
+    abs_err, ms, plain_ms = _compare(wc, p, F, G, ddh.wh_maxit, ddh.gmask == 0,
+                                     "wave cycle (a), flagship")
     flop = 2 * 2 * ddh.wh_maxit * ddh.nt * ddh.n_domains * ddh.pad**2
-    print(f"wave cycle: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms per cycle; "
-          f"rel err u {err_u:.3e} v {err_v:.3e}, max abs err {abs_err:.3e}; "
-          f"kernel {flop / ms / 1e9:.1f} TFLOP/s on padded shapes ({flop:.3e} FLOP)")
+    bound_a, by_a = _cycle_bound(p.S, ddh.n_domains, ddh.pad, ddh.nt, ddh.wh_maxit)
+    print(f"wave cycle (a): {flop / ms / 1e9:.1f} TFLOP/s on padded shapes ({flop:.3e} FLOP), "
+          f"bound {bound_a:.3f} ms ({by_a})")
 
     # --- 3. the flagship solve, direct path ------------------------------------
-    wc.wave_cycle.launches = 0
+    wc.reset_launches()
     res = run_ddh(nx=nx, deg=deg, m=cfg.gmres.m, maxit=cfg.gmres.maxit, tol=cfg.gmres.tol,
                   wh_maxit=cfg.wh_maxit, block_size=cfg.block_size, transfer=False,
                   device=dev)
-    launches = wc.wave_cycle.launches
+    launches = dict(wc.wave_cycle.launches)
     print(f"flagship solve: success={res.success} restarts={res.num_iter} "
           f"matvecs={res.num_matvec} launches={launches} solve {res.seconds:.3f} s "
           f"({1e3 * res.seconds / (res.num_matvec + 2):.3f} ms per cycle incl. GMRES) "
@@ -143,32 +263,110 @@ def main() -> int:
         _fail("flagship solve did not converge")
     if res.num_iter > 20:
         _fail(f"flagship solve took {res.num_iter} restarts (> 20)")
-    if launches != res.num_matvec + 2:
+    if launches != {"shared": res.num_matvec + 2, "grouped": 0}:
         _fail(f"kernel launches {launches} != num_matvec + 2 = {res.num_matvec + 2}")
     U = res.solution
     if U.shape != (2 * res.extra["ndof"],) or not np.isfinite(U).all():
         _fail(f"solution has shape {U.shape} or non-finite values")
-
     sddh = res.extra["ddh"]
-    lam = res.extra["lam"]
     b = helmholtz_rhs(sddh.space, lambda xy: point_sources(xy, omega)).to(dev)
-    Y = ddh_rhs(sddh.params, b, sddh.g_ndof, sddh.n_lambda, cycle=wc.wave_cycle_plain)
-    AX = ddh_action(sddh.params, lam, n_own=sddh.n_own, cycle=wc.wave_cycle_plain)
-    resid = float(torch.linalg.vector_norm(Y - AX) / torch.linalg.vector_norm(Y))
+    resid = _plain_residual(wc, sddh, b, res.extra["lam"])
     print(f"plain-cycle check: ||Y - A(x)|| / ||Y|| = {resid:.3e}")
     if not resid <= 1.2e-4:
         _fail(f"plain-cycle residual {resid:.3e} > 1.2e-4")
+    del res, sddh
+    total = dict(launches)
 
-    print(json.dumps({"kernels": [{
-        "name": "wave_cycle",
-        "route": "cuda",
-        "source": "cuddhelmholtz_tpu_torch/csrc/wave_cycle.cu",
-        "replaces": "cuddhelmholtz_tpu/ops/pallas/wave_cycle.py:69",
-        "launches": launches,
-        "max_abs_err": abs_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}))
+    # --- 4. layouts (b) and (c) at the unstructured-square shapes -------------
+    mesh = load_unstructured_square()
+    labels, _ = coordinate_bisection_labels(mesh, ucfg.n_domains)
+    ufem = H1Space(mesh, Basis(ucfg.deg + 1))
+    ua = apply_diag_inv_mass(
+        make_diag_inv_mass_op(ufem), linear_functional(ufem, wave_speed_coeff)
+    ).numpy()
+    uddh = DDH(ucfg.omega, ua, ufem, element_labels=labels, wh_maxit=ucfg.wh_maxit,
+               device=dev)
+    up = uddh.params
+    uidx, _, nu = uddh._domain_groups()
+    c = 2 * uddh.fslot.shape[1]  # transfer probe columns per unique domain
+    print(f"unstructured DDH: ndom={uddh.n_domains} nu={nu} pad={uddh.pad} pf={c // 2} "
+          f"nt={uddh.nt} S {tuple(up.S.shape)}")
+    if up.S.dim() != 3 or c % wc.ROWS_PER_BLOCK:
+        _fail("unstructured stiffness is not per-domain or the probe runs are not 8-aligned")
+    ui = torch.as_tensor(uidx, device=dev)
+    gp = up._replace(S=up.S[ui].contiguous(), Ha=up.Ha[ui].repeat_interleave(c, 0),
+                     inv_mi=up.inv_mi[ui].repeat_interleave(c, 0))
+    gmask = uddh.gmask[ui].repeat_interleave(c, 0)
+    gm = gmask.cpu().numpy()
+    Fb, Gb = _masked_normal(rng, gm, dev), _masked_normal(rng, gm, dev)
+    abs_err_b, ms_b, plain_ms_b = _compare(
+        wc, gp, Fb, Gb, uddh.wh_maxit, gmask == 0,
+        f"wave cycle (b), {nu * c} rows in runs of {c}", s_group_size=c)
+    bound_b, by_b = _cycle_bound(gp.S, nu * c, uddh.pad, uddh.nt, uddh.wh_maxit)
+    print(f"wave cycle (b): bound {bound_b:.3f} ms ({by_b})")
+    um = uddh.gmask.cpu().numpy()
+    Fc, Gc = _masked_normal(rng, um, dev), _masked_normal(rng, um, dev)
+    abs_err_c, ms_c, plain_ms_c = _compare(
+        wc, up, Fc, Gc, uddh.wh_maxit, uddh.gmask == 0,
+        f"wave cycle (c), {uddh.n_domains} rows tiled x{wc.ROWS_PER_BLOCK}")
+    bound_c, by_c = _cycle_bound(up.S, uddh.n_domains, uddh.pad, uddh.nt, uddh.wh_maxit)
+    print(f"wave cycle (c): bound {bound_c:.3f} ms ({by_c}) for the {uddh.n_domains} rows "
+          f"it computes")
+    del uddh, gp, Fb, Gb
+
+    # --- 5. the flagship transfer solve ----------------------------------------
+    res5, launches = _transfer_run(
+        wc, lambda: run_ddh(nx=nx, deg=deg, m=cfg.gmres.m, maxit=cfg.gmres.maxit,
+                            tol=cfg.gmres.tol, wh_maxit=cfg.wh_maxit,
+                            block_size=cfg.block_size, transfer=True, device=dev),
+        "flagship transfer solve", max_restarts=20, jax_matvecs=366,
+        matvec_slack=cfg.gmres.m + 1, gm=cfg.gmres)
+    if launches["shared"] == 0:
+        _fail("flagship transfer path launched no layout-(a) kernel")
+    for k in total:
+        total[k] += launches[k]
+    del res5
+
+    # --- 6. the unstructured square at full size --------------------------------
+    res6, launches = _transfer_run(
+        wc, lambda: run_config(ucfg, device=dev), "unstructured transfer solve",
+        max_restarts=100, jax_matvecs=668, matvec_slack=2 * (ucfg.gmres.m + 1),
+        gm=ucfg.gmres)
+    if launches["grouped"] == 0:
+        _fail("unstructured transfer path launched no layout-(b) kernel")
+    for k in total:
+        total[k] += launches[k]
+    del res6
+    print(f"kernel launches over the main-path runs: {total}")
+
+    print(json.dumps({"kernels": [
+        {
+            "name": "wave_cycle (a) shared S",
+            "route": "cuda",
+            "source": "cuddhelmholtz_tpu_torch/csrc/wave_cycle.cu",
+            "replaces": "cuddhelmholtz_tpu/ops/pallas/wave_cycle.py:69",
+            "launches": total["shared"],
+            "max_abs_err": abs_err,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_a,
+            "bound_by": by_a,
+            "library_ms": None,
+        },
+        {
+            "name": "wave_cycle (b) grouped S",
+            "route": "cuda",
+            "source": "cuddhelmholtz_tpu_torch/csrc/wave_cycle.cu",
+            "replaces": "cuddhelmholtz_tpu/ops/pallas/wave_cycle.py:201",
+            "launches": total["grouped"],
+            "max_abs_err": max(abs_err_b, abs_err_c),
+            "ms": ms_b,
+            "plain_ms": plain_ms_b,
+            "bound_ms": bound_b,
+            "bound_by": by_b,
+            "library_ms": None,
+        },
+    ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

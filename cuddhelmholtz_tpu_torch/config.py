@@ -1,10 +1,10 @@
 """Problem/solver configuration dataclasses.
 
 Counterpart of ``cuddhelmholtz_tpu/config.py`` (copied: importing the JAX
-module would import jax).  Only the flagship entry, ``ddh_structured``, is
-carried, with the fields the port's direct path reads; the JAX package's
-``transfer``, ``coarse``, ``rhs_split``, ``n_sources`` and mesh-file fields
-come with the code that reads them.
+module would import jax).  The two DDH entries are carried, ``ddh_structured``
+and ``ddh_unstructured_square``, with the fields the port reads; the JAX
+package's ``coarse``, ``rhs_split`` and ``n_sources`` fields come with the
+code that reads them.
 """
 
 from __future__ import annotations
@@ -23,10 +23,16 @@ class GmresConfig:
 @dataclass(frozen=True)
 class ProblemConfig:
     name: str
+    kind: str = "ddh"  # the JAX package's other kinds are not ported
     nx: int = 128
     deg: int = 3
+    mesh: str = "uniform_rect"  # or "unstructured_square"
     gmres: GmresConfig = field(default_factory=GmresConfig)
     wh_maxit: int = 5
+    n_domains: int | None = None  # for unstructured partitions
+    # precompute the per-subdomain trace-transfer matrices (and, on a GPU,
+    # the io maps): the production DDH matvec
+    transfer: bool = True
     # DDH subdomain side length in DOFs
     block_size: int = 16
 
@@ -38,5 +44,13 @@ class ProblemConfig:
 DDH_STRUCTURED = ProblemConfig(
     name="ddh_structured",
     nx=128,
+    gmres=GmresConfig(m=20, maxit=100, tol=1e-4),
+)
+
+DDH_UNSTRUCTURED_SQUARE = ProblemConfig(
+    name="ddh_unstructured_square",
+    nx=8,  # sets omega; geometry comes from the mesh file
+    mesh="unstructured_square",
+    n_domains=8,
     gmres=GmresConfig(m=20, maxit=100, tol=1e-4),
 )

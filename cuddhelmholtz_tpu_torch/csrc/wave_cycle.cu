@@ -1,9 +1,13 @@
-// WaveHoltz cycle of the DDH preconditioner, shared-stiffness layout, for
-// NVIDIA Hopper (sm_90a).
+// WaveHoltz cycle of the DDH preconditioner for NVIDIA Hopper (sm_90a).
 //
 // Replaces cuddhelmholtz_tpu/ops/pallas/wave_cycle.py::_wave_kernel (launched
-// by wave_cycle_pallas) for one (pad, pad) stiffness S shared by every
-// subdomain row.  It computes what the Pallas kernel computes: wh_maxit
+// by wave_cycle_pallas) in two of its stiffness layouts:
+//   (a) shared: one (pad, pad) S for every subdomain row (s_group_size = 0);
+//   (b) grouped: an (ngroups, pad, pad) stack, rows in contiguous runs of
+//       s_group_size (a multiple of kRows), run g against S[g].  The Pallas
+//       kernel's per-row layout (c) reaches this one through the wrapper,
+//       which tiles each row x8 (s_group_size = 8), as the JAX solver does.
+// It computes what the Pallas kernel computes: wh_maxit
 // WaveHoltz fixed-point iterations, each restarting from (p, q) = (u, v) and
 // (u, v) = K0 (u, v), of nt staggered-leapfrog steps
 //
@@ -38,6 +42,13 @@
 //     from 27.7 to 23.0 ms against one thread per column (NVIDIA H100 80GB
 //     HBM3 at its 700 W limit; PERF.md);
 //   * plain fp32 FFMA: exact fp32 products, no TF32 and no split passes.
+//
+// Layout (b) changes only which S a block stages: all kRows rows of a block
+// lie in one run, so the block loads S[(blockIdx.x kRows) / s_group_size]
+// once and runs the same loop.  Its bound is that of (a): S is resident in
+// shared memory for the whole cycle, so the FMA work per row is the same and
+// the extra device-memory traffic is one S per block (124 KB against ~5e8
+// FLOP of block work at pad 176, nt 800).
 // Known limits, left for later work: S must fit in shared memory (pad up to
 // about 220), and the kernel runs at about a third of the FP32 FMA peak.
 
@@ -57,7 +68,7 @@ wave_cycle_kernel(const float* __restrict__ S, const float* __restrict__ F,
                   const float* __restrict__ G, const float* __restrict__ Ha,
                   const float* __restrict__ mi, const float* __restrict__ tables,
                   float* __restrict__ u_out, float* __restrict__ v_out, int ndom,
-                  int pad, int nt, int wh_maxit, float dt, float K0) {
+                  int pad, int nt, int wh_maxit, int s_group_size, float dt, float K0) {
   extern __shared__ float4 smem4[];
   float* sS = reinterpret_cast<float*>(smem4);  // (pad, pad)
   float* sP = sS + pad * pad;                   // [2 kRows][pad]: p rows, then p_half
@@ -67,7 +78,9 @@ wave_cycle_kernel(const float* __restrict__ S, const float* __restrict__ F,
   const int kbeg = grp * (pad / 2), kend = kbeg + pad / 2;
   const int d0 = blockIdx.x * kRows + grp * kHalf;  // first owned row
 
-  const float4* S4 = reinterpret_cast<const float4*>(S);
+  // layout (b): this block's rows all lie in run (blockIdx.x kRows) / s_group_size
+  const size_t group = s_group_size > 0 ? (blockIdx.x * kRows) / s_group_size : 0;
+  const float4* S4 = reinterpret_cast<const float4*>(S + group * pad * pad);
   for (int i = threadIdx.x; i < pad * pad / 4; i += blockDim.x) smem4[i] = S4[i];
 
   float f[kHalf], g[kHalf], ha[kHalf], m[kHalf];
@@ -198,12 +211,14 @@ const char* wave_cycle_error_string(int code) {
 }
 
 // Launch one cycle on `stream`.  All pointers are device float32, contiguous:
-// S (pad, pad); F, G, Ha, mi, u, v (ndom, pad); tables (nt, 5).  Returns a
-// cudaError_t; 0 means the launch was accepted.
+// S (pad, pad) with s_group_size = 0, or (ndom / s_group_size, pad, pad) with
+// s_group_size a multiple of kRows dividing ndom (the wrapper checks both);
+// F, G, Ha, mi, u, v (ndom, pad); tables (nt, 5).  Returns a cudaError_t; 0
+// means the launch was accepted.
 int wave_cycle_launch(const float* S, const float* F, const float* G, const float* Ha,
                       const float* mi, const float* tables, float* u, float* v, int ndom,
-                      int pad, int nt, int wh_maxit, float dt, float K0, int device,
-                      void* stream) {
+                      int pad, int nt, int wh_maxit, int s_group_size, float dt, float K0,
+                      int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long smem = wave_cycle_shared_memory_bytes(pad);
@@ -213,7 +228,8 @@ int wave_cycle_launch(const float* S, const float* F, const float* G, const floa
   const int blocks = (ndom + kRows - 1) / kRows;
   wave_cycle_kernel<<<blocks, 2 * pad, static_cast<size_t>(smem),
                       static_cast<cudaStream_t>(stream)>>>(S, F, G, Ha, mi, tables, u, v,
-                                                          ndom, pad, nt, wh_maxit, dt, K0);
+                                                          ndom, pad, nt, wh_maxit,
+                                                          s_group_size, dt, K0);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,13 +1,17 @@
-"""The DDH example driver.
+"""The DDH example drivers.
 
-Counterpart of ``run_ddh``, ``point_sources``, ``wave_speed_coeff`` and
-``DriverResult`` in ``cuddhelmholtz_tpu/examples/drivers.py`` on the direct
-path: every lambda-GMRES matvec runs the full WaveHoltz cycle.  The setup
-functionals run on the host in float64; the solve runs on ``device``.
+Counterpart of ``run_config``, ``run_ddh``, ``point_sources``,
+``wave_speed_coeff`` and ``DriverResult`` in
+``cuddhelmholtz_tpu/examples/drivers.py``.  ``run_ddh`` runs the direct path
+(every lambda-GMRES matvec is a full WaveHoltz cycle) or, with
+``transfer=True``, the precomputed trace-transfer path.  The setup
+functionals run on the host in float64; the solve runs on ``device``, the
+card unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import time
 from dataclasses import dataclass, field
@@ -15,11 +19,13 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..mesh.io import load_unstructured_square
 from ..mesh.mesh2d import Mesh2D
 from ..models.helmholtz import helmholtz_rhs
 from ..ops.functional import linear_functional
 from ..ops.mass import apply_diag_inv_mass, make_diag_inv_mass_op
-from ..solvers.ddh import DDH
+from ..solvers.ddh import DDH, check_device
+from ..spaces.ensemble import coordinate_bisection_labels
 from ..spaces.h1 import H1Space
 from ..utils.basis import Basis
 
@@ -51,6 +57,33 @@ class DriverResult:
     extra: dict = field(default_factory=dict)
 
 
+def run_config(cfg, **overrides) -> DriverResult:
+    """Run a ``ProblemConfig`` (``config.DDH_STRUCTURED`` or
+    ``config.DDH_UNSTRUCTURED_SQUARE``).
+
+    ``overrides`` replace config fields (``m``, ``maxit`` and ``tol`` go to
+    the GMRES settings); ``device`` is passed on to ``run_ddh``.
+    """
+    device = overrides.pop("device", "cuda")
+    gm = {k: overrides.pop(k) for k in ("m", "maxit", "tol") if k in overrides}
+    if gm:
+        overrides["gmres"] = dataclasses.replace(cfg.gmres, **gm)
+    cfg = dataclasses.replace(cfg, **overrides)
+    if cfg.kind != "ddh":
+        raise NotImplementedError(
+            f"config kind {cfg.kind!r}: only the DDH drivers are ported "
+            "(ROADMAP queue 1, items 12-14)"
+        )
+    g = cfg.gmres
+    kw = dict(nx=cfg.nx, deg=cfg.deg, m=g.m, maxit=g.maxit, tol=g.tol,
+              wh_maxit=cfg.wh_maxit, transfer=cfg.transfer, device=device)
+    if cfg.mesh == "unstructured_square":
+        mesh = load_unstructured_square()
+        labels, _ = coordinate_bisection_labels(mesh, cfg.n_domains or 8)
+        return run_ddh(mesh=mesh, element_labels=labels, **kw)
+    return run_ddh(block_size=cfg.block_size, **kw)
+
+
 def run_ddh(
     nx: int = 128,
     deg: int = 3,
@@ -64,26 +97,25 @@ def run_ddh(
     block_size: int = 16,
     coarse: str | None = None,
     *,
-    device,
+    device="cuda",
 ) -> DriverResult:
-    """The DDH substructured-solver example on the direct path.
+    """The DDH substructured-solver example.
 
     With the default structured mesh this is the reference configuration
     (16x16-DOF subdomains); pass ``mesh`` + ``element_labels`` for other
-    partitions.  ``seconds`` is the solve (rhs, lambda-GMRES, postprocess),
-    synchronised on the device.  ``extra["lam"]`` is the substructured
-    solution and ``extra["ddh"]`` the operator.
+    partitions.  ``transfer=True`` precomputes the per-subdomain
+    trace-transfer matrices (and on a GPU the rhs/postprocess io maps) in
+    ``DDH.prepare``; the solve then runs no wave cycle.  ``seconds`` is the
+    solve (rhs, lambda-GMRES, postprocess), synchronised on the device;
+    ``extra["setup_seconds"]`` includes ``prepare``, whose stats are
+    ``extra["precompute"]``.  ``extra["lam"]`` is the substructured solution
+    and ``extra["ddh"]`` the operator.
     """
-    if transfer:
-        raise NotImplementedError(
-            "transfer=True: the trace-transfer/io precompute is not ported yet "
-            "(ROADMAP queue 1, item 1)"
-        )
     if coarse:
         raise NotImplementedError(
             "coarse: the two-level coarse space is not ported yet (ROADMAP queue 1, item 15)"
         )
-    device = torch.device(device)
+    device = check_device(device)
     omega = 2 * np.pi * nx / 10
     if mesh is None:
         mesh = Mesh2D.uniform_rect(nx, -1.0, 1.0, nx, -1.0, 1.0)
@@ -103,6 +135,10 @@ def run_ddh(
     else:
         ddh = DDH(omega, a_nodal, fem, element_labels=element_labels, wh_maxit=wh_maxit,
                   device=device)
+    pstats = {}
+    if transfer:
+        # the io maps pay off where the probe cycles are cheap: on the card
+        pstats = ddh.prepare(want_io=device.type == "cuda")
     setup_s = time.perf_counter() - t_setup
 
     solve = ddh.solver(m, maxit, tol)
@@ -128,6 +164,7 @@ def run_ddh(
             "n_domains": ddh.n_domains,
             "nt": ddh.nt,
             "setup_seconds": setup_s,
+            "precompute": pstats,
             "ddh": ddh,
             "lam": out.x,
         },

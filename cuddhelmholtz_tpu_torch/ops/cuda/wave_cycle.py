@@ -3,9 +3,16 @@
 Counterpart of ``cuddhelmholtz_tpu/ops/pallas/wave_cycle.py``.  ``wave_cycle``
 runs ``wh_maxit`` WaveHoltz iterations of ``nt`` staggered-leapfrog steps on
 every subdomain row with one launch of the hand-written CUDA kernel in
-``csrc/wave_cycle.cu`` (shared (pad, pad) stiffness only).  For tensors on the
-CPU it runs ``wave_cycle_plain``, the JAX package's ``_wave_cycle_xla`` loop as
-torch ops; for a CUDA tensor it launches the kernel or raises.
+``csrc/wave_cycle.cu``, in the Pallas kernel's three stiffness layouts:
+
+  (a) one shared (pad, pad) S;
+  (b) an (ngroups, pad, pad) stack with rows in runs of ``s_group_size``;
+  (c) one S per row (ndom, pad, pad): each row is tiled x8 onto (b), as the
+      JAX package's solver does (its ``solvers/ddh.py::_wave_cycle``).
+
+For tensors on the CPU it runs ``wave_cycle_plain``, the JAX package's
+``_wave_cycle_xla`` loop as torch ops; for a CUDA tensor it launches the
+kernel or raises.
 
 Both compute the stiffness product as ``P @ S`` (the Pallas kernel's
 orientation); the JAX scan computes ``S P``.  They agree because the
@@ -61,12 +68,17 @@ def check_shared_memory(pad: int, limit: int) -> None:
         )
 
 
-def wave_cycle_plain(params, F: torch.Tensor, G: torch.Tensor, wh_maxit: int = WH_MAXIT):
+def wave_cycle_plain(
+    params, F: torch.Tensor, G: torch.Tensor, wh_maxit: int = WH_MAXIT,
+    s_group_size: int | None = None,
+):
     """Plain PyTorch WaveHoltz cycle (the JAX package's ``_wave_cycle_xla``).
 
-    ``params`` provides ``S`` ((pad, pad) shared or (ndom, pad, pad)),
-    ``Ha``, ``inv_mi``, ``tables`` (nt, 5) and the float scalars ``dt`` and
-    ``K0``.  Returns the filtered (u, v), each shaped like ``F``.
+    ``params`` provides ``S``, ``Ha``, ``inv_mi``, ``tables`` (nt, 5) and the
+    float scalars ``dt`` and ``K0``.  ``S`` is (pad, pad) shared, or a 3-D
+    stack: with ``s_group_size`` rows run in groups of that many against one
+    matrix each, without it every row has its own.  Returns the filtered
+    (u, v), each shaped like ``F``.
     """
     S, Ha, mi = params.S, params.Ha, params.inv_mi
     dt = params.dt
@@ -76,6 +88,12 @@ def wave_cycle_plain(params, F: torch.Tensor, G: torch.Tensor, wh_maxit: int = W
     if S.dim() == 2:
         def apply_S(p):
             return p @ S
+    elif s_group_size is not None:
+        _check_groups(S.shape[0], s_group_size, F.shape[0])
+
+        def apply_S(p):
+            pg = p.reshape(S.shape[0], s_group_size, p.shape[1])
+            return torch.einsum("gck,gki->gci", pg, S).reshape(p.shape)
     else:
         def apply_S(p):
             return torch.einsum("dk,dki->di", p, S)
@@ -97,6 +115,14 @@ def wave_cycle_plain(params, F: torch.Tensor, G: torch.Tensor, wh_maxit: int = W
             u = u.add(p, alpha=kt)
             v = v.add(q, alpha=kt)
     return u, v
+
+
+def _check_groups(ngroups: int, s_group_size: int, ndom: int) -> None:
+    if s_group_size < 1 or ngroups * s_group_size != ndom:
+        raise ValueError(
+            f"wave_cycle: {ngroups} stiffness groups x s_group_size={s_group_size} "
+            f"!= {ndom} rows"
+        )
 
 
 def _find_nvcc() -> str:
@@ -137,7 +163,7 @@ def build() -> Path:
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.wave_cycle_launch.argtypes = [ptr] * 8 + [i32] * 4 + [f32, f32, i32, ptr]
+    lib.wave_cycle_launch.argtypes = [ptr] * 8 + [i32] * 5 + [f32, f32, i32, ptr]
     lib.wave_cycle_launch.restype = i32
     lib.wave_cycle_max_shared_memory.argtypes = [i32]
     lib.wave_cycle_max_shared_memory.restype = i32
@@ -158,7 +184,7 @@ def _check_operands(params, F: torch.Tensor, G: torch.Tensor) -> None:
     ndom, pad = F.shape
     nt = params.tables.shape[0]
     expect = {
-        "S": (params.S, (pad, pad)),
+        "S": (params.S, (pad, pad) if params.S.dim() == 2 else (params.S.shape[0], pad, pad)),
         "F": (F, (ndom, pad)),
         "G": (G, (ndom, pad)),
         "Ha": (params.Ha, (ndom, pad)),
@@ -181,22 +207,47 @@ def _check_operands(params, F: torch.Tensor, G: torch.Tensor) -> None:
         raise ValueError("wave_cycle: S must be 16-byte aligned")
 
 
-def wave_cycle(params, F: torch.Tensor, G: torch.Tensor, wh_maxit: int = WH_MAXIT):
+def wave_cycle(
+    params, F: torch.Tensor, G: torch.Tensor, wh_maxit: int = WH_MAXIT,
+    s_group_size: int | None = None,
+):
     """Run the WaveHoltz cycle; returns (u, v) shaped like ``F``.
 
     On the CPU this is ``wave_cycle_plain``.  On a CUDA device it is one
-    launch of the Hopper kernel, counted in ``wave_cycle.launches``; a
-    per-domain (3-D) stiffness raises ``NotImplementedError`` there.
+    launch of the Hopper kernel, counted in ``wave_cycle.launches`` under
+    ``"shared"`` (layout (a)) or ``"grouped"`` (layouts (b) and (c)).  A 3-D
+    ``S`` with ``s_group_size`` is layout (b): the runs must be a multiple of
+    ``ROWS_PER_BLOCK`` rows.  A 3-D ``S`` without it holds one matrix per row
+    (layout (c)): each row is repeated ``ROWS_PER_BLOCK`` times, run as layout
+    (b) and read back once.  Anything else raises; nothing falls back.
     """
     if F.device.type == "cpu":
-        return wave_cycle_plain(params, F, G, wh_maxit)
+        return wave_cycle_plain(params, F, G, wh_maxit, s_group_size)
     if F.device.type != "cuda":
         raise ValueError(f"wave_cycle: unsupported device {F.device}")
-    if params.S.dim() != 2:
-        raise NotImplementedError(
-            "wave_cycle: per-domain stiffness stacks (K1 layouts (b)/(c)) have no "
-            "CUDA kernel yet (ROADMAP queue 2, K1)"
+    S = params.S
+    if S.dim() == 3 and s_group_size is None:
+        r = ROWS_PER_BLOCK
+        tiled = params._replace(
+            Ha=params.Ha.repeat_interleave(r, dim=0),
+            inv_mi=params.inv_mi.repeat_interleave(r, dim=0),
         )
+        u, v = wave_cycle(
+            tiled, F.repeat_interleave(r, dim=0), G.repeat_interleave(r, dim=0), wh_maxit, r
+        )
+        return u[::r], v[::r]
+    if S.dim() == 2:
+        if s_group_size is not None:
+            raise ValueError("wave_cycle: s_group_size needs a 3-D stiffness stack")
+        layout, gsize = "shared", 0
+    else:
+        _check_groups(S.shape[0], s_group_size, F.shape[0])
+        if s_group_size % ROWS_PER_BLOCK:
+            raise ValueError(
+                f"wave_cycle: s_group_size={s_group_size} must be a multiple of "
+                f"{ROWS_PER_BLOCK} (the rows of one block share one S)"
+            )
+        layout, gsize = "grouped", s_group_size
     _check_operands(params, F, G)
     ndom, pad = F.shape
     dev = F.device.index
@@ -208,17 +259,23 @@ def wave_cycle(params, F: torch.Tensor, G: torch.Tensor, wh_maxit: int = WH_MAXI
     u = torch.empty_like(F)
     v = torch.empty_like(F)
     err = lib.wave_cycle_launch(
-        params.S.data_ptr(), F.data_ptr(), G.data_ptr(), params.Ha.data_ptr(),
+        S.data_ptr(), F.data_ptr(), G.data_ptr(), params.Ha.data_ptr(),
         params.inv_mi.data_ptr(), params.tables.data_ptr(), u.data_ptr(), v.data_ptr(),
-        ndom, pad, params.tables.shape[0], wh_maxit, params.dt, params.K0, dev,
+        ndom, pad, params.tables.shape[0], wh_maxit, gsize, params.dt, params.K0, dev,
         torch.cuda.current_stream(F.device).cuda_stream,
     )
     if err:
         raise RuntimeError(
             f"wave_cycle: kernel launch failed: {lib.wave_cycle_error_string(err).decode()}"
         )
-    wave_cycle.launches += 1
+    wave_cycle.launches[layout] += 1
     return u, v
 
 
-wave_cycle.launches = 0
+def reset_launches() -> None:
+    """Set every layout's launch count to 0."""
+    for layout in wave_cycle.launches:
+        wave_cycle.launches[layout] = 0
+
+
+wave_cycle.launches = {"shared": 0, "grouped": 0}

@@ -1,4 +1,4 @@
-"""DDH: substructured domain-decomposition WaveHoltz preconditioner (direct path).
+"""DDH: substructured domain-decomposition WaveHoltz preconditioner.
 
 Counterpart of ``cuddhelmholtz_tpu/solvers/ddh.py``.  Each application runs
 ``wh_maxit`` fixed-point WaveHoltz iterations of a staggered-leapfrog wave
@@ -9,9 +9,17 @@ solves the substructured system ``(I - S) lambda = b`` on the interfaces.
 The setup is the JAX package's, in NumPy float64: WaveHoltz tables, the
 lambda B-tables with the reference's last-write-wins order, the own-slot
 lambda layout and the dense assembled subdomain stiffness.  Device state is
-float32.  This is the direct path: every ``action``, ``rhs`` and
-``postprocess`` runs one wave cycle (``ops/cuda/wave_cycle.py``; one kernel
-launch on a GPU).  The trace-transfer/io precompute, the disk cache and the
+float32.  Two paths:
+
+  * direct: every ``action``, ``rhs`` and ``postprocess`` runs one wave cycle
+    (``ops/cuda/wave_cycle.py``; one kernel launch on a GPU);
+  * transfer/io (``prepare``): one-hot probe columns go through the wave
+    cycle once per unique subdomain, giving the per-subdomain trace-transfer
+    matrices (``precompute_transfer``) and the rhs/postprocess maps
+    (``precompute_io_maps``); the solve then runs no wave cycle, only
+    batched matmuls and the trace exchange (rolled, or one scatter).
+
+The disk cache of the precomputed maps, the window-patch io variant and the
 coarse space are not ported yet.
 
 The port pads a subdomain to a multiple of ``PAD_MULTIPLE`` = 8 DOFs (169 ->
@@ -21,19 +29,24 @@ The port pads a subdomain to a multiple of ``PAD_MULTIPLE`` = 8 DOFs (169 ->
 
 from __future__ import annotations
 
+import time
+from collections import defaultdict
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from ..ops.cuda.wave_cycle import WH_MAXIT, wave_cycle
+from ..ops.cuda.wave_cycle import ROWS_PER_BLOCK, WH_MAXIT, wave_cycle
 from ..ops.mass import lumped_mass_diagonal
 from ..spaces.ensemble import EnsembleSpace, structured_labels
 from ..spaces.h1 import H1Space
 from .gmres import GmresResult, gmres
 
 PAD_MULTIPLE = 8
+# probe columns go through the cycle in chunks of at most this many state
+# elements per (rows, pad) array: 128 MB of float32
+PROBE_STATE_ELEMS = 1 << 25
 
 
 class DDHParams(NamedTuple):
@@ -153,6 +166,23 @@ def _stiffness_factor_basis(D: np.ndarray) -> np.ndarray:
     return out.reshape(3 * nb2, nb2, nb2).transpose(0, 2, 1).reshape(3 * nb2, -1)
 
 
+def check_device(device) -> torch.device:
+    """The device an entry point runs on: the card unless the caller asks for
+    the CPU.  A CUDA device that is not there raises; nothing falls back."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device} requested but no CUDA device is available; "
+            "pass device='cpu' to run on the CPU"
+        )
+    return device
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def _to_device(arrays: dict, device) -> dict:
     out = {}
     for name in _TENSOR_FIELDS:
@@ -193,6 +223,35 @@ def ddh_params_from_jax(arrays: dict[str, np.ndarray], pad: int, device) -> DDHP
     )
 
 
+def load_jax_maps(ddh: "DDH", maps: dict[str, np.ndarray], jax_pad: int) -> None:
+    """Install the JAX package's precomputed maps in a port ``DDH``.
+
+    ``maps`` holds NumPy arrays under the JAX names: ``T_u`` (nu, 2pf, 2pf)
+    and ``groups`` (ndom,), and optionally the io maps ``Pu``, ``Pv`` (nu,
+    jax_pad, 2 jax_pad), ``R`` (nu, 2pf, 2 jax_pad), ``Pul``, ``Pvl`` (nu,
+    jax_pad, 2pf).  Their slot axes are cut from ``jax_pad`` to the port's
+    pad (a multiple of 8, never above the JAX package's multiple of 128).
+    """
+    pad = ddh.pad
+    if pad > jax_pad:
+        raise ValueError(f"the port's pad {pad} exceeds the JAX pad {jax_pad}")
+
+    def slots(a, axis):  # one slot axis of length jax_pad -> pad
+        return np.take(np.asarray(a), np.arange(pad), axis=axis)
+
+    def fg_cols(a):  # the [F | G] input axis of length 2 jax_pad -> 2 pad
+        a = np.asarray(a)
+        return np.concatenate([slots(a[..., :jax_pad], -1), slots(a[..., jax_pad:], -1)], -1)
+
+    groups = np.asarray(maps["groups"]).reshape(-1)
+    ddh.set_transfer(maps["T_u"], groups)
+    if "Pu" in maps:
+        ddh.set_io_maps(
+            fg_cols(slots(maps["Pu"], 1)), fg_cols(slots(maps["Pv"], 1)), fg_cols(maps["R"]),
+            slots(maps["Pul"], 1), slots(maps["Pvl"], 1), groups,
+        )
+
+
 class DDH(nn.Module):
     """The substructured DDH operator for an H1 space.
 
@@ -214,9 +273,10 @@ class DDH(nn.Module):
         nt_override: int | None = None,
         wh_maxit: int = WH_MAXIT,
         *,
-        device,
+        device="cuda",
     ):
         super().__init__()
+        device = check_device(device)
         nb = space.n_basis
         mesh = space.mesh
 
@@ -375,6 +435,27 @@ class DDH(nn.Module):
             fslot >= 0, 2.0 * omega * np.take_along_axis(a_sub, fs_safe, axis=1), 0.0
         )
 
+        # host copies for the dedup key and the transfer/io route builders
+        self._fslot_np = fslot
+        self._Hf_np = Hf
+        self._B1_np = B[:, :, 1].copy()
+        self._Ha_np = H_sub * a_sub
+        self._mi_np = inv_mi
+        self._a2wf_np = a2wf
+        self._S_np = S_dev
+        self._groups = None
+        # transfer/io state (``prepare``): the deduped host transfer stack
+        # _T_u with its group vector; the full per-domain stack ``T`` is
+        # expanded on first use (the rolled exchange never reads it)
+        self._T_u: np.ndarray | None = None
+        self._T_groups: np.ndarray | None = None
+        self._T_dev: torch.Tensor | None = None
+        self.use_transfer = False
+        self.route: RollRoute | None = None
+        self.io: IOMaps | None = None
+        self.transfer_stats: dict = {}
+        self.io_stats: dict = {}
+
         # the full global rhs row feeds every subdomain that touches it (the
         # reference's forcing; the JAX package's rhs_split="mass" is not ported)
         host = {
@@ -403,22 +484,236 @@ class DDH(nn.Module):
         """DOFs of the substructured problem: (lambda, mu) pairs."""
         return 2 * self.n_lambda
 
+    @property
+    def T(self) -> torch.Tensor | None:
+        """Full per-domain trace-transfer stack (ndom, 2pf, 2pf), expanded
+        from the deduped form on first access."""
+        if self._T_dev is None and self._T_u is not None:
+            self._T_dev = torch.as_tensor(self._T_u[self._T_groups], device=self.gmask.device)
+        return self._T_dev
+
     def forward(self, lam: torch.Tensor) -> torch.Tensor:
         return self.action(lam)
 
     def action(self, lam: torch.Tensor) -> torch.Tensor:
         """y = lambda - S(lambda): the GMRES operator."""
+        if self.use_transfer and self.route is not None:
+            return ddh_action_transfer_rolled(self.params, self.route, lam, self.n_own)
+        if self.use_transfer:
+            return ddh_action_transfer(self.params, self.T, lam, self.n_own)
         return ddh_action(self.params, lam, n_own=self.n_own, wh_maxit=self.wh_maxit)
 
     def rhs(self, f: torch.Tensor) -> torch.Tensor:
         """Substructured rhs from the Helmholtz forcing."""
+        if self.use_transfer and self.io is not None:
+            return ddh_rhs_io(self.params, self.io, f, self.g_ndof, self.n_lambda)
         return ddh_rhs(self.params, f, self.g_ndof, self.n_lambda, wh_maxit=self.wh_maxit)
 
     def postprocess(self, lam: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
         """Recover the [u; v] solution."""
+        if self.use_transfer and self.io is not None:
+            return ddh_postprocess_io(self.params, self.io, lam, f, self.g_ndof, self.n_own)
         return ddh_postprocess(
             self.params, lam, f, self.g_ndof, n_own=self.n_own, wh_maxit=self.wh_maxit
         )
+
+    # ------------------------------------------------------ transfer / io
+
+    def _domain_groups(self) -> tuple[np.ndarray, np.ndarray, int]:
+        """Identical-subdomain dedup: (unique indices, group of each domain,
+        unique count).  Domains whose cycle data (S, Ha, inv_mi, Hf, fslot,
+        a2wf) agree in float32 have identical probe responses.  The key has
+        the JAX package's parts and order; for a per-domain S its exact
+        float32 rows take the place of the JAX package's device probe."""
+        if self._groups is None:
+            f32 = np.float32
+            parts = [
+                self._Ha_np.astype(f32),
+                self._mi_np.astype(f32),
+                self._a2wf_np.astype(f32),
+                self._Hf_np,
+                self._fslot_np.astype(np.float64),
+            ]
+            if self._S_np.ndim == 3:
+                parts.append(self._S_np.astype(f32).reshape(self.n_domains, -1))
+            key = np.concatenate([np.asarray(x, dtype=np.float64) for x in parts], axis=1)
+            _, uidx, inv = np.unique(key, axis=0, return_index=True, return_inverse=True)
+            self._groups = (uidx, inv.reshape(-1), len(uidx))
+        return self._groups
+
+    def _probe(self, cols: np.ndarray, stats: str) -> tuple:
+        """Run one-hot probe columns through the wave cycle for the unique
+        subdomains.  ``cols`` is (ncols, 2, nu, pad): the F and G rows of each
+        column.  Returns (U, V/omega), each (ncols, nu, pad), and the stats.
+
+        A shared S runs layout (a) with rows ordered (column, domain); a
+        per-domain S runs layout (b) with rows ordered (domain, column), one
+        run of ``c8`` rows per unique matrix (columns zero-padded to a
+        multiple of 8).  Columns go in chunks of at most PROBE_STATE_ELEMS
+        state elements per array."""
+        uidx, _, nu = self._domain_groups()
+        ncols, pad = cols.shape[0], self.pad
+        p = self.params
+        dev = self.gmask.device
+        ui = torch.as_tensor(uidx, device=dev)
+        Ha_u, mi_u = self.Ha[ui], self.inv_mi[ui]
+        grouped = p.S.dim() == 3
+        S_u = p.S[ui].contiguous() if grouped else p.S
+        chunk = max(1, min(ncols, PROBE_STATE_ELEMS // (nu * pad)))
+        if grouped:
+            chunk = max(ROWS_PER_BLOCK, chunk // ROWS_PER_BLOCK * ROWS_PER_BLOCK)
+        us, vs, secs, rows = [], [], [], 0
+        for k0 in range(0, ncols, chunk):
+            c = min(chunk, ncols - k0)
+            t0 = time.perf_counter()
+            if grouped:
+                c8 = -(-c // ROWS_PER_BLOCK) * ROWS_PER_BLOCK
+                rows += nu * c8
+                fg = np.zeros((2, nu, c8, pad), np.float32)
+                fg[:, :, :c] = cols[k0:k0 + c].transpose(1, 2, 0, 3)
+                fg = torch.as_tensor(fg, device=dev).reshape(2, nu * c8, pad)
+                pc = p._replace(
+                    S=S_u, Ha=Ha_u.repeat_interleave(c8, dim=0),
+                    inv_mi=mi_u.repeat_interleave(c8, dim=0),
+                )
+                u, v = wave_cycle(pc, fg[0], fg[1], self.wh_maxit, s_group_size=c8)
+                u = u.reshape(nu, c8, pad)[:, :c].transpose(0, 1)
+                v = v.reshape(nu, c8, pad)[:, :c].transpose(0, 1)
+            else:
+                fg = torch.as_tensor(cols[k0:k0 + c].transpose(1, 0, 2, 3), device=dev)
+                fg = fg.reshape(2, c * nu, pad)
+                pc = p._replace(Ha=Ha_u.repeat(c, 1), inv_mi=mi_u.repeat(c, 1))
+                rows += nu * c
+                u, v = wave_cycle(pc, fg[0], fg[1], self.wh_maxit)
+                u, v = u.reshape(c, nu, pad), v.reshape(c, nu, pad)
+            us.append(u)
+            vs.append(v / p.omega)
+            _sync(dev)
+            secs.append(time.perf_counter() - t0)
+        info = {
+            f"{stats}_nu": int(nu),
+            f"{stats}_ncols": int(ncols),
+            f"{stats}_chunk_cols": int(chunk),
+            f"{stats}_layout": "grouped" if grouped else "shared",
+            f"{stats}_rows": rows,
+            f"{stats}_chunk_seconds": secs,
+        }
+        return torch.cat(us), torch.cat(vs), info
+
+    def _trace_columns(self, ncols: int, base: int) -> np.ndarray:
+        """(ncols, 2, nu, pad) probe columns, zero but for the one-hot trace
+        columns base + k (lam side, F) and base + pf + k (mu side, G): each
+        puts Hf[d, k] at fslot[d, k], as the action's trace forcing does."""
+        uidx, _, nu = self._domain_groups()
+        pf = self._fslot_np.shape[1]
+        fslot_u, Hf_u = self._fslot_np[uidx], self._Hf_np[uidx]
+        cols = np.zeros((ncols, 2, nu, self.pad), np.float32)
+        kk, dd = np.meshgrid(np.arange(pf), np.arange(nu), indexing="ij")
+        sl = np.maximum(fslot_u, 0)
+        cols[base + kk, 0, dd, sl[dd, kk]] = Hf_u[dd, kk]
+        cols[base + pf + kk, 1, dd, sl[dd, kk]] = Hf_u[dd, kk]
+        return cols
+
+    def _face_values(self, U: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
+        """[a2wf v_f, a2wf u_f] at the face slots of the unique subdomains:
+        (ncols, nu, pad) -> (ncols, nu, 2pf)."""
+        uidx, _, _ = self._domain_groups()
+        ui = torch.as_tensor(uidx, device=U.device)
+        fs = self.fslot[ui].clamp_min(0).expand(U.shape[0], -1, -1)
+        a2wf = self.a2wf[ui]
+        return torch.cat([a2wf * V.gather(2, fs), a2wf * U.gather(2, fs)], dim=2)
+
+    def precompute_transfer(self) -> np.ndarray:
+        """Precompute the per-subdomain trace-transfer matrices.
+
+        The wave cycle is linear in the incoming traces: for each subdomain
+        the map from its 2 pf compact trace inputs (lam0, mu0) to its
+        transmission outputs (a 2w v_f, a 2w u_f) is a fixed (2pf, 2pf)
+        matrix.  It is probed once per unique subdomain with one-hot trace
+        columns; every matvec is then one batched (ndom, 2pf) @ (2pf, 2pf)
+        product.  Returns the deduped host stack (nu, 2pf, 2pf) and builds
+        the rolled exchange route when the dual graph admits one.
+        """
+        _, inv, _ = self._domain_groups()
+        ncols = 2 * self._fslot_np.shape[1]
+        U, V, self.transfer_stats = self._probe(self._trace_columns(ncols, 0), "transfer")
+        T_u = self._face_values(U, V).permute(1, 2, 0)  # (nu, row, col)
+        self.set_transfer(T_u.cpu().numpy(), inv)
+        return self._T_u
+
+    def set_transfer(self, T_u: np.ndarray, groups: np.ndarray) -> None:
+        """Use the deduped transfer stack ``T_u`` (nu, 2pf, 2pf) with the
+        group of each domain; builds the rolled exchange route when the dual
+        graph admits one, else the action scatters."""
+        self._T_u = np.ascontiguousarray(T_u, dtype=np.float32)
+        self._T_groups = np.asarray(groups)
+        self._T_dev = None
+        self.use_transfer = True
+        self.route = _build_roll_route(
+            self._T_u, self._T_groups, self._B1_np, self.n_own, self.gmask.device
+        )
+
+    def precompute_io_maps(self, max_bytes: int = 1 << 30):
+        """Precompute the rhs/postprocess linear maps (see ``IOMaps``).
+
+        Probes the cycle with one-hot forcing columns (2 pad) and one-hot
+        trace columns (2 pf) for the unique subdomains; afterwards ``rhs``
+        and ``postprocess`` are batched matmuls.  Returns None, leaving the
+        wave path in use, when the maps would exceed ``max_bytes``.
+        """
+        _, inv, nu = self._domain_groups()
+        pf, pad = self._fslot_np.shape[1], self.pad
+        need = 4 * nu * (2 * pad * 2 * pad + 2 * pf * 2 * pad + 2 * pad * 2 * pf)
+        if need > max_bytes:
+            return None
+        base = 2 * pad
+        cols = self._trace_columns(base + 2 * pf, base)
+        cols[np.arange(pad), 0, :, np.arange(pad)] = 1.0
+        cols[pad + np.arange(pad), 1, :, np.arange(pad)] = 1.0
+        U, V, self.io_stats = self._probe(cols, "io")
+        R = self._face_values(U[:base], V[:base])
+
+        def maps(X):  # (ncols, nu, n) -> (nu, n, ncols)
+            return X.permute(1, 2, 0)
+
+        return self.set_io_maps(
+            maps(U[:base]), maps(V[:base]), maps(R), maps(U[base:]), maps(V[base:]), inv
+        )
+
+    def set_io_maps(self, Pu, Pv, R, Pul, Pvl, groups: np.ndarray) -> "IOMaps":
+        """Use these rhs/postprocess maps (shapes in ``IOMaps``) with the
+        group of each domain."""
+        dev = self.gmask.device
+        nu = int(np.max(groups)) + 1
+
+        def t(a):
+            if not isinstance(a, torch.Tensor):
+                a = np.array(a, dtype=np.float32)
+            return torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()
+
+        maj, spec = _iomaps_split(groups, dev)
+        self.io = IOMaps(
+            Pu=t(Pu), Pv=t(Pv), R=t(R), Pul=t(Pul), Pvl=t(Pvl),
+            onehot=t(groups[None, :] == np.arange(nu)[:, None]), maj=maj, spec_idx=spec,
+        )
+        return self.io
+
+    def prepare(self, want_io: bool = True) -> dict:
+        """Compute the transfer (and optionally io) maps; returns the stats
+        (seconds per phase, unique domains, columns, layout).  The JAX
+        package's disk cache of these maps is not ported."""
+        stats: dict = {}
+        t0 = time.perf_counter()
+        self.precompute_transfer()
+        stats["transfer_seconds"] = time.perf_counter() - t0
+        stats.update(self.transfer_stats)
+        if want_io:
+            t0 = time.perf_counter()
+            self.precompute_io_maps()
+            _sync(self.gmask.device)
+            stats["io_seconds"] = time.perf_counter() - t0
+            stats.update(self.io_stats)
+        return stats
 
     def solver(self, m: int, maxit: int, tol: float):
         """The whole solve, b -> (GmresResult, U): rhs, lambda-GMRES(m),
@@ -471,18 +766,11 @@ def _forcing(params: DDHParams, x, lam, g_ndof: int, n_own: int | None = None):
 
 
 def _scatter_updates(params: DDHParams, lam0, mu0, u, v, n_lambda: int) -> torch.Tensor:
-    """Transmission update written to the dual trace slots.  The valid B1 ids
-    are unique, so the write order of the scatter does not matter; invalid
-    slots all write 0 to a dropped extra entry."""
+    """Transmission update written to the dual trace slots (``_b1_scatter``)."""
     fs = params.fslot.clamp_min(0)
     uf = u.gather(1, fs)
     vf = v.gather(1, fs)
-    has = params.B1 >= 0
-    idx = torch.where(has, params.B1, n_lambda).reshape(-1)
-    out = torch.zeros((2, n_lambda + 1), dtype=u.dtype, device=u.device)
-    out[0, idx] = torch.where(has, -lam0 - params.a2wf * vf, 0.0).reshape(-1)
-    out[1, idx] = torch.where(has, -mu0 + params.a2wf * uf, 0.0).reshape(-1)
-    return out[:, :n_lambda].reshape(-1)
+    return _b1_scatter(params, -lam0 - params.a2wf * vf, -mu0 + params.a2wf * uf, n_lambda)
 
 
 def _scatter_solution(params: DDHParams, u, v, g_ndof: int) -> torch.Tensor:
@@ -544,4 +832,276 @@ def ddh_postprocess(
     F, G, _, _ = _forcing(params, f, lam, g_ndof, n_own)
     u, v = cycle(params, F, G, wh_maxit)
     v = v / params.omega
+    return _scatter_solution(params, u, v, g_ndof)
+
+
+# ------------------------------------------------------- the transfer/io apply
+
+
+class IOMaps(NamedTuple):
+    """Precomputed linear maps of ``rhs`` and ``postprocess`` (the JAX
+    ``IOMaps``).  The cycle is linear in its forcing (F, G) and incoming
+    traces, so both collapse to batched matmuls against maps probed once per
+    unique subdomain.  Shapes: nu unique domains, pad slots, pf face slots.
+    """
+
+    Pu: torch.Tensor  # (nu, pad, 2pad)  (F, G) -> u
+    Pv: torch.Tensor  # (nu, pad, 2pad)  (F, G) -> v/omega
+    R: torch.Tensor  # (nu, 2pf, 2pad)  (F, G) -> [a2wf vf, a2wf uf]
+    Pul: torch.Tensor  # (nu, pad, 2pf)  (lam0, mu0) -> u
+    Pvl: torch.Tensor  # (nu, pad, 2pf)  (lam0, mu0) -> v/omega
+    onehot: torch.Tensor  # (nu, ndom) group membership
+    # majority split (set when >= half the domains share one matrix): one
+    # shared matmul plus the special domains' rows recomputed
+    maj: int | None = None  # majority group id
+    spec_idx: torch.Tensor | None = None  # (nspec,) sorted special domains
+
+
+class RollRoute(NamedTuple):
+    """Roll-based trace exchange for (near-)regular subdomain graphs (the
+    JAX ``RollRoute``).
+
+    Discovered from the B1 dual table: sender slot k of domain d routing to
+    slot sigma(k) of domain d + off, for a fixed flat offset, is exchanged
+    with a mask, a ``torch.roll`` over the domain axis and a fixed column
+    gather.  ``A`` is the transfer matrix with the identity terms folded in,
+    rows at the sender slots.  The remainder (writes to overwritten-corner
+    tail ids, irregular senders) goes through one small scatter.
+    """
+
+    A: torch.Tensor | None  # (ndom, 2pf, 2pf) identity-folded -I -/+ T
+    masks: torch.Tensor  # (n_route, ndom, 2pf+1) 0/1 sender masks, bf16
+    offs: tuple  # (n_route,) flat domain offset of each route
+    perms: torch.Tensor  # (n_route, 2pf) target slot <- sender column
+    irr_src: torch.Tensor  # (n_irr,) flat (ndom*pf) sender index per half
+    irr_tgt: torch.Tensor  # (n_irr,) into the n_lambda-sized side vector
+    A0: torch.Tensor | None  # (2pf, 2pf) shared majority matrix
+    A_spec: torch.Tensor | None  # (nspec, 2pf, 2pf) corrections A[spec] - A0
+    spec_idx: torch.Tensor | None  # (nspec,) sorted special-domain rows
+
+
+def _build_roll_route(
+    T_u: np.ndarray,
+    groups: np.ndarray,
+    B1_np: np.ndarray,
+    n_own: int,
+    device,
+    max_routes: int = 16,
+    min_uniform_frac: float = 0.5,
+) -> RollRoute | None:
+    """Discover (offset, slot-map) routes in B1 and build a RollRoute.
+
+    Senders are grouped by (domain offset, sender slot, target slot); groups
+    sharing an offset pack greedily into routes with injective slot maps.
+    Returns None when fewer than ``min_uniform_frac`` of the senders fit a
+    route; the scatter exchange is used then.
+    """
+    ndom, pf = B1_np.shape
+    d = np.repeat(np.arange(ndom), pf)
+    k = np.tile(np.arange(pf), ndom)
+    t = B1_np.reshape(-1).astype(np.int64)
+    send = t >= 0
+    own_t = send & (t < n_own)
+    td, tk = np.divmod(np.where(own_t, t, 0), pf)
+    off_all = td - d
+
+    flat = np.nonzero(own_t)[0]
+    if flat.size == 0:
+        return None
+    offf = off_all[flat]
+    omin = int(offf.min())
+    key = ((offf - omin).astype(np.int64) * pf + k[flat]) * pf + tk[flat]
+    order = np.argsort(key, kind="stable")
+    uk, starts, counts = np.unique(key[order], return_index=True, return_counts=True)
+    tt_u = (uk % pf).astype(np.int64)
+    kk_u = ((uk // pf) % pf).astype(np.int64)
+    off_u = (uk // (pf * pf)).astype(np.int64) + omin
+
+    def members_of(gi: int) -> np.ndarray:
+        return flat[order[starts[gi]:starts[gi] + counts[gi]]]
+
+    # pack groups into routes: per route one offset + an injective slot map
+    per_off: dict = defaultdict(list)  # off -> [(used_k, used_t, members)]
+    for gi in np.argsort(-counts, kind="stable"):
+        o, kk, tt = int(off_u[gi]), int(kk_u[gi]), int(tt_u[gi])
+        for sk, st, members in per_off[o]:
+            if kk not in sk and tt not in st:
+                sk.add(kk)
+                st.add(tt)
+                members[kk] = (tt, gi)
+                break
+        else:
+            per_off[o].append(({kk}, {tt}, {kk: (tt, gi)}))
+
+    route_list = [(o, members) for o, lst in per_off.items() for _, _, members in lst]
+    route_list.sort(key=lambda om: -sum(counts[gi] for _, gi in om[1].values()))
+    route_list = route_list[:max_routes]
+
+    covered = np.zeros(ndom * pf, bool)
+    offs: list[int] = []
+    perms: list[np.ndarray] = []
+    masks = np.zeros((len(route_list), ndom, 2 * pf + 1), np.float32)
+    for i, (o, members) in enumerate(route_list):
+        # target slot c <- sender slot perm[c]; uncovered targets read the
+        # zero pad column 2pf
+        perm = np.full(2 * pf, 2 * pf, np.int64)
+        for kk, (tt, gi) in members.items():
+            perm[tt] = kk
+            perm[pf + tt] = pf + kk
+            ii = members_of(gi)
+            masks[i, ii // pf, kk] = 1.0
+            masks[i, ii // pf, pf + kk] = 1.0
+            covered[ii] = True
+        offs.append(int(o))
+        perms.append(perm)
+
+    if int(covered.sum()) < min_uniform_frac * int(send.sum()):
+        return None
+
+    # A = identity-folded (-I -/+ T) at the deduped level: row i < pf gives
+    # -x_l - w_l, row i >= pf gives -x_m + w_m
+    A_u = np.concatenate([-T_u[:, :pf, :], T_u[:, pf:, :]], axis=1)
+    A_u[:, np.arange(2 * pf), np.arange(2 * pf)] -= 1.0
+
+    irr = np.nonzero(send & ~covered)[0]
+    irr = irr[np.argsort(t[irr], kind="stable")]
+
+    def dev(a, dtype=None):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
+
+    A0 = A_spec = spec_idx = A_full = None
+    counts = np.bincount(groups)
+    maj = int(np.argmax(counts))
+    if counts[maj] >= 0.5 * ndom:
+        A0 = dev(A_u[maj])
+        spec = np.nonzero(groups != maj)[0]
+        if spec.size:
+            A_spec = dev(A_u[groups[spec]] - A_u[maj][None])
+            spec_idx = dev(spec, torch.int64)
+    else:
+        A_full = dev(A_u[groups])
+
+    return RollRoute(
+        A=A_full,
+        masks=dev(masks, torch.bfloat16),
+        offs=tuple(offs),
+        perms=dev(np.stack(perms)),
+        irr_src=dev(irr, torch.int64),
+        irr_tgt=dev(t[irr], torch.int64),
+        A0=A0,
+        A_spec=A_spec,
+        spec_idx=spec_idx,
+    )
+
+
+def _iomaps_split(inv: np.ndarray, device):
+    """Majority-split metadata for ``_group_apply``: (maj, spec_idx), both
+    None when no group covers at least half the domains."""
+    counts = np.bincount(inv)
+    maj = int(np.argmax(counts))
+    if counts[maj] < 0.5 * inv.size:
+        return None, None
+    spec = np.nonzero(inv != maj)[0]
+    return maj, torch.as_tensor(spec, dtype=torch.int64, device=device)
+
+
+def _group_apply(M, x, onehot, maj=None, spec_idx=None) -> torch.Tensor:
+    """y[d] = M[group(d)] @ x[d].
+
+    With majority metadata: one shared matmul for every domain plus the
+    special rows recomputed (their indices are unique, so the overwrite
+    order does not matter).  Otherwise: above nu > ndom/4 gather each
+    domain's matrix and run one batched product; below, one product per
+    unique matrix and a one-hot combine."""
+    if spec_idx is not None:
+        y = x @ M[maj].T
+        if spec_idx.numel() > 0:
+            ys = _group_apply(M, x[spec_idx], onehot[:, spec_idx])
+            y.index_copy_(0, spec_idx, ys)
+        return y
+    nu, ndom = onehot.shape
+    if 4 * nu > ndom:
+        return torch.einsum("doi,di->do", M[onehot.argmax(dim=0)], x)
+    ys = torch.einsum("uoi,di->udo", M, x)
+    return torch.einsum("udo,ud->do", ys, onehot)
+
+
+def _b1_scatter(params: DDHParams, upd_l, upd_m, n_lambda: int) -> torch.Tensor:
+    """Write per-domain face updates to the dual trace slots.  The valid B1
+    ids are unique, so the write order does not matter; invalid slots all
+    write 0 to a dropped extra entry."""
+    has = params.B1 >= 0
+    idx = torch.where(has, params.B1, n_lambda).reshape(-1)
+    out = torch.zeros((2, n_lambda + 1), dtype=upd_l.dtype, device=upd_l.device)
+    out[0, idx] = torch.where(has, upd_l, 0.0).reshape(-1)
+    out[1, idx] = torch.where(has, upd_m, 0.0).reshape(-1)
+    return out[:, :n_lambda].reshape(-1)
+
+
+def ddh_action_transfer(params: DDHParams, T, lam, n_own: int) -> torch.Tensor:
+    """lambda - S(lambda) via the per-subdomain transfer matrices T (ndom,
+    2pf, 2pf) and one scatter: the exchange when no roll route was found."""
+    n_lambda = lam.shape[0] // 2
+    pf = params.Hf.shape[1]
+    lam0, mu0 = _read_traces(params, lam, n_lambda, n_own)
+    w = torch.einsum("dik,dk->di", T, torch.cat([lam0, mu0], dim=1))
+    return lam - _b1_scatter(params, -lam0 - w[:, :pf], -mu0 + w[:, pf:], n_lambda)
+
+
+def _transfer_matmul(route: RollRoute, x: torch.Tensor) -> torch.Tensor:
+    """u2 = A x batched over subdomains (shared-majority split when set; the
+    special rows are unique, so ``index_add_`` order does not matter)."""
+    if route.A0 is not None:
+        u2 = x @ route.A0.T
+        if route.A_spec is not None:
+            ws = torch.einsum("sik,sk->si", route.A_spec, x[route.spec_idx])
+            u2.index_add_(0, route.spec_idx, ws)
+        return u2
+    return torch.einsum("dik,dk->di", route.A, x)
+
+
+def ddh_action_transfer_rolled(params: DDHParams, route: RollRoute, lam, n_own: int):
+    """lambda - S(lambda) with the roll-based trace exchange: one batched
+    product against the identity-folded transfer matrix, then per route a
+    mask, a roll over the domain axis and a column gather; the remainder
+    through one scatter with unique targets."""
+    n_lambda = lam.shape[0] // 2
+    pf = params.B0.shape[1]
+    lam0, mu0 = _read_traces(params, lam, n_lambda, n_own)
+    u2 = _transfer_matmul(route, torch.cat([lam0, mu0], dim=1))
+    u2p = torch.nn.functional.pad(u2, (0, 1))  # zero pad column for dead slots
+    out_own = torch.zeros_like(u2)
+    for off, mask, perm in zip(route.offs, route.masks, route.perms):
+        out_own += torch.roll(mask * u2p, off, dims=0)[:, perm]
+    tail = lam.new_zeros(n_lambda - n_own)
+    out_l = torch.cat([out_own[:, :pf].reshape(-1), tail])
+    out_m = torch.cat([out_own[:, pf:].reshape(-1), tail])
+    if route.irr_src.numel() > 0:
+        out_l[route.irr_tgt] = u2[:, :pf].reshape(-1)[route.irr_src]
+        out_m[route.irr_tgt] = u2[:, pf:].reshape(-1)[route.irr_src]
+    return lam - torch.cat([out_l, out_m])
+
+
+def ddh_rhs_io(params: DDHParams, io: IOMaps, f, g_ndof: int, n_lambda: int):
+    """``ddh_rhs`` through the precomputed forcing -> trace map: no wave
+    cycle runs."""
+    F, G, _, _ = _forcing(params, f, None, g_ndof)
+    pf = params.Hf.shape[1]
+    w = _group_apply(io.R, torch.cat([F, G], dim=1), io.onehot, io.maj, io.spec_idx)
+    return _b1_scatter(params, -w[:, :pf], w[:, pf:], n_lambda)
+
+
+def ddh_postprocess_io(params: DDHParams, io: IOMaps, lam, f, g_ndof: int, n_own: int):
+    """``ddh_postprocess`` through the precomputed maps: u = Pu [F; G] +
+    Pul [lam0; mu0] (likewise v), then the mass-weighted global scatter."""
+    F, G, _, _ = _forcing(params, f, None, g_ndof)
+    lam0, mu0 = _read_traces(params, lam, lam.shape[0] // 2, n_own)
+    x = torch.cat([F, G], dim=1)
+    tr = torch.cat([lam0, mu0], dim=1)
+
+    def ga(M, z):
+        return _group_apply(M, z, io.onehot, io.maj, io.spec_idx)
+
+    u = ga(io.Pu, x) + ga(io.Pul, tr)
+    v = ga(io.Pv, x) + ga(io.Pvl, tr)
     return _scatter_solution(params, u, v, g_ndof)

@@ -11,11 +11,13 @@ subdomain and padded with -1,
 
 Every numbering is one batched first-occurrence pass over a domain-major
 traversal, as in the JAX package, so the tables agree bitwise.
-``coordinate_bisection_labels`` is not on the structured DDH path and is not
-ported yet.
+``structured_labels`` and ``coordinate_bisection_labels`` make the element
+labels of a partition.
 """
 
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 
@@ -189,3 +191,70 @@ def structured_labels(nx: int, ny: int, elems_per_dom_x: int, elems_per_dom_y: i
     i, j = np.meshgrid(np.arange(nx), np.arange(ny), indexing="ij")
     lab = (i // elems_per_dom_x) + ndx * (j // elems_per_dom_y)
     return lab.T.reshape(-1), ndx * (ny // elems_per_dom_y)
+
+
+def coordinate_bisection_labels(mesh, n_target: int, cut_sweep: int = 0) -> tuple[np.ndarray, int]:
+    """Partition a mesh into ~n_target subdomains by recursive coordinate
+    bisection of element centroids.
+
+    ``cut_sweep=0`` splits the largest part at the median of its wider
+    coordinate extent.  ``cut_sweep=k > 1`` sweeps ``k`` balanced candidate
+    cuts (quantiles 0.35..0.65) along both axes and keeps the one crossing
+    the fewest interior edges, then the most balanced.  Returns ``(labels,
+    n_parts)``; ``n_parts`` is below ``n_target`` (with a warning) when every
+    part is down to one element.
+    """
+    cent = mesh.element_corner_coords().mean(axis=1)  # (nel, 2)
+    nel = mesh.n_elem
+    if cut_sweep > 1:
+        iee = mesh.edge_elements[mesh.interior_edges]  # (nie, 2) adjacency
+        side = np.zeros(nel, dtype=bool)
+    parts = [np.arange(nel)]
+    while len(parts) < n_target:
+        sizes = [len(p) for p in parts]
+        k = int(np.argmax(sizes))
+        if sizes[k] <= 1:
+            warnings.warn(
+                f"coordinate_bisection_labels: mesh exhausted at {len(parts)} "
+                f"single-element parts (requested {n_target})",
+                stacklevel=2,
+            )
+            break
+        part = parts.pop(k)
+        c = cent[part]
+        lo = hi = None
+        if cut_sweep > 1 and len(part) > 2:
+            in_part = np.zeros(nel, dtype=bool)
+            in_part[part] = True
+            cand = iee[in_part[iee[:, 0]] & in_part[iee[:, 1]]]
+            best = None
+            for axis in (0, 1):
+                if np.ptp(c[:, axis]) <= 0:
+                    continue
+                for q in np.linspace(0.35, 0.65, cut_sweep):
+                    cut = np.quantile(c[:, axis], q)
+                    lo_mask = c[:, axis] <= cut
+                    n_lo = int(lo_mask.sum())
+                    if n_lo == 0 or n_lo == len(part):
+                        continue
+                    side[part] = lo_mask
+                    crossing = int((side[cand[:, 0]] != side[cand[:, 1]]).sum())
+                    key = (crossing, abs(2 * n_lo - len(part)))
+                    if best is None or key < best[0]:
+                        best = (key, part[lo_mask], part[~lo_mask])
+            if best is not None:
+                _, lo, hi = best
+        if lo is None:
+            axis = int(np.argmax(c.max(axis=0) - c.min(axis=0)))
+            med = np.median(c[:, axis])
+            lo = part[c[:, axis] <= med]
+            hi = part[c[:, axis] > med]
+            if len(lo) == 0 or len(hi) == 0:
+                order = np.argsort(c[:, axis], kind="stable")
+                half = len(part) // 2
+                lo, hi = part[order[:half]], part[order[half:]]
+        parts.extend([lo, hi])
+    labels = np.zeros(nel, dtype=np.int64)
+    for p, els in enumerate(parts):
+        labels[els] = p
+    return labels, len(parts)

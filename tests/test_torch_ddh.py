@@ -31,6 +31,10 @@ from cuddhelmholtz_tpu_torch.spaces.h1 import H1Space
 from cuddhelmholtz_tpu_torch.utils.basis import Basis
 from ddh_oracle import DDHOracle
 
+# Small shapes: torch's intra-op thread pool costs more than it saves here,
+# and beside other busy test processes it slows these tests a hundredfold.
+torch.set_num_threads(1)
+
 NX, DEG, BLOCK = 8, 3, 8
 OMEGA = 2 * np.pi * NX / 2.5  # nt = 200 (test_ddh_oracle.py)
 TOL = 2e-4

@@ -26,6 +26,10 @@ from cuddhelmholtz_tpu_torch.solvers.gmres import gmres
 from cuddhelmholtz_tpu_torch.spaces.h1 import H1Space
 from cuddhelmholtz_tpu_torch.utils.basis import Basis
 
+# Small shapes: torch's intra-op thread pool costs more than it saves here,
+# and beside other busy test processes it slows these tests a hundredfold.
+torch.set_num_threads(1)
+
 
 def toeplitz_np(x):
     """Nonsymmetric tridiagonal Toeplitz: diag -3, sub 1.0, super 1.5."""

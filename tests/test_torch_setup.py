@@ -8,6 +8,7 @@ both and are compared at 1e-6 relative on real slots (the port pads a
 subdomain to a multiple of 8, the JAX package to 128).
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -21,12 +22,17 @@ from cuddhelmholtz_tpu.solvers.ddh import DDH as JDDH
 from cuddhelmholtz_tpu.spaces.h1 import H1Space as JH1Space
 from cuddhelmholtz_tpu.utils.basis import Basis as JBasis
 from cuddhelmholtz_tpu.utils.quadrature import QuadratureRule as JQuad
-from cuddhelmholtz_tpu_torch.examples.drivers import run_ddh
+from cuddhelmholtz_tpu_torch.config import DDH_STRUCTURED
+from cuddhelmholtz_tpu_torch.examples.drivers import run_config, run_ddh
 from cuddhelmholtz_tpu_torch.mesh.mesh2d import Mesh2D
 from cuddhelmholtz_tpu_torch.solvers.ddh import DDH, ddh_params_from_jax
 from cuddhelmholtz_tpu_torch.spaces.h1 import H1Space
 from cuddhelmholtz_tpu_torch.utils.basis import Basis
 from cuddhelmholtz_tpu_torch.utils.quadrature import QuadratureRule
+
+# Small shapes: torch's intra-op thread pool costs more than it saves here,
+# and beside other busy test processes it slows these tests a hundredfold.
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NX, DEG, BLOCK = 8, 3, 8
@@ -153,13 +159,19 @@ def test_params_from_jax_round_trip(pair):
 
 
 def test_run_ddh_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_ddh(nx=8, transfer=True, device="cpu")
+    """The transfer path is ported now (it runs); the coarse space and the
+    other config kinds still raise, naming the ROADMAP item."""
+    res = run_ddh(nx=8, block_size=8, transfer=True, tol=1e-2, device="cpu")
+    assert res.success and res.extra["ddh"].use_transfer
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run_ddh(nx=8, coarse="additive", device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        run_config(dataclasses.replace(DDH_STRUCTURED, kind="poisson"), device="cpu")
 
 
 def test_port_imports_no_jax():
-    code = ("import cuddhelmholtz_tpu_torch.examples.drivers, sys; "
-            "assert 'jax' not in sys.modules; assert 'cuddhelmholtz_tpu' not in sys.modules")
+    mods = ("examples.drivers", "config", "mesh.io", "spaces.ensemble", "solvers.ddh",
+            "ops.cuda.wave_cycle")
+    code = ("import sys; " + "; ".join(f"import cuddhelmholtz_tpu_torch.{m}" for m in mods)
+            + "; assert 'jax' not in sys.modules; assert 'cuddhelmholtz_tpu' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)

@@ -23,6 +23,10 @@ from cuddhelmholtz_tpu_torch.solvers.ddh import DDH, ddh_params_from_jax
 from cuddhelmholtz_tpu_torch.spaces.h1 import H1Space
 from cuddhelmholtz_tpu_torch.utils.basis import Basis
 
+# Small shapes: torch's intra-op thread pool costs more than it saves here,
+# and beside other busy test processes it slows these tests a hundredfold.
+torch.set_num_threads(1)
+
 NX, DEG, BLOCK = 8, 3, 8
 OMEGA = 2 * np.pi * NX / 2.5  # nt = 200 at the CFL-limited dt
 TOL = 2e-4
@@ -116,11 +120,34 @@ def test_plain_per_domain_matches_xla_scan():
 def test_wrapper_runs_plain_on_cpu_without_counting(shared_case):
     _, _, F, G, port, pad = shared_case
     Ft, Gt = torch.from_numpy(F[:, :pad]), torch.from_numpy(G[:, :pad])
-    before = wc.wave_cycle.launches
+    before = dict(wc.wave_cycle.launches)
     u, v = wc.wave_cycle(port, Ft, Gt, wh_maxit=1)
     u0, v0 = wc.wave_cycle_plain(port, Ft, Gt, wh_maxit=1)
     assert torch.equal(u, u0) and torch.equal(v, v0)
     assert wc.wave_cycle.launches == before
+
+
+def _grouped_case(device, c=8, nt_override=30):
+    """A per-domain-S DDH and layout-(b) operands: each domain's S, Ha and
+    inv_mi repeated over a run of ``c`` rows, masked random (F, G)."""
+    ddh = _port_ddh(device, jitter=True, nt_override=nt_override)
+    p = ddh.params
+    gp = p._replace(Ha=p.Ha.repeat_interleave(c, 0), inv_mi=p.inv_mi.repeat_interleave(c, 0))
+    gmask = ddh.gmask.repeat_interleave(c, 0)
+    F, G = _forcing(gmask.cpu().numpy(), seed=6)
+    return ddh, gp, torch.from_numpy(F).to(device), torch.from_numpy(G).to(device), gmask
+
+
+def test_plain_grouped_matches_per_row():
+    """Layout (b) in the plain cycle: rows in runs sharing one S equal the
+    per-row cycle on the same stack expanded to one S per row."""
+    ddh, gp, F, G, _ = _grouped_case("cpu", c=3)
+    u, v = wc.wave_cycle(gp, F, G, s_group_size=3)
+    rows = gp._replace(S=gp.S.repeat_interleave(3, 0))
+    u0, v0 = wc.wave_cycle_plain(rows, F, G)
+    assert _rel_max(u, u0) < 1e-6 and _rel_max(v, v0) < 1e-6
+    with pytest.raises(ValueError, match="s_group_size"):
+        wc.wave_cycle_plain(gp, F, G, s_group_size=5)
 
 
 @pytest.mark.parametrize("pad,fits", [(56, True), (176, True), (216, True), (256, False)])
@@ -163,10 +190,10 @@ def test_kernel_matches_plain(cuda):
     ddh = _port_ddh(cuda)
     F, G = _forcing(ddh.gmask.cpu().numpy(), seed=5)
     Ft, Gt = torch.from_numpy(F).to(cuda), torch.from_numpy(G).to(cuda)
-    before = wc.wave_cycle.launches
+    before = dict(wc.wave_cycle.launches)
     u, v = wc.wave_cycle(ddh.params, Ft, Gt)
     torch.cuda.synchronize()
-    assert wc.wave_cycle.launches == before + 1
+    assert wc.wave_cycle.launches == {**before, "shared": before["shared"] + 1}
     u0, v0 = wc.wave_cycle_plain(ddh.params, Ft, Gt)
     assert _rel_max(u.cpu(), u0.cpu()) < TOL
     assert _rel_max(v.cpu(), v0.cpu()) < TOL
@@ -176,9 +203,45 @@ def test_kernel_matches_plain(cuda):
 
 
 @pytest.mark.cuda
-def test_kernel_refuses_per_domain_stiffness(cuda):
-    ddh = _port_ddh(cuda, jitter=True, nt_override=10)
-    assert ddh.params.S.dim() == 3
-    F = torch.zeros_like(ddh.gmask)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        wc.wave_cycle(ddh.params, F, F)
+def test_kernel_per_row_stiffness_matches_plain(cuda):
+    """Layout (c): one S per row, each row tiled x8 onto layout (b)."""
+    ddh = _port_ddh(cuda, jitter=True, nt_override=60)
+    assert ddh.params.S.dim() == 3 and ddh.params.S.shape[0] == ddh.n_domains
+    F, G = _forcing(ddh.gmask.cpu().numpy(), seed=7)
+    Ft, Gt = torch.from_numpy(F).to(cuda), torch.from_numpy(G).to(cuda)
+    before = dict(wc.wave_cycle.launches)
+    u, v = wc.wave_cycle(ddh.params, Ft, Gt)
+    torch.cuda.synchronize()
+    assert wc.wave_cycle.launches == {**before, "grouped": before["grouped"] + 1}
+    u0, v0 = wc.wave_cycle_plain(ddh.params, Ft, Gt)
+    assert _rel_max(u.cpu(), u0.cpu()) < TOL and _rel_max(v.cpu(), v0.cpu()) < TOL
+    pad_mask = ddh.gmask == 0
+    assert (u[pad_mask] == 0).all() and (v[pad_mask] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [8, 24])
+def test_kernel_grouped_matches_plain(cuda, c):
+    """Layout (b): runs of c rows against one S each."""
+    _, gp, F, G, gmask = _grouped_case(cuda, c=c, nt_override=60)
+    before = dict(wc.wave_cycle.launches)
+    u, v = wc.wave_cycle(gp, F, G, s_group_size=c)
+    torch.cuda.synchronize()
+    assert wc.wave_cycle.launches == {**before, "grouped": before["grouped"] + 1}
+    u0, v0 = wc.wave_cycle_plain(gp, F, G, s_group_size=c)
+    assert _rel_max(u.cpu(), u0.cpu()) < TOL and _rel_max(v.cpu(), v0.cpu()) < TOL
+    assert (u[gmask == 0] == 0).all() and (v[gmask == 0] == 0).all()
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_bad_groups_and_large_pad(cuda):
+    _, gp, F, G, _ = _grouped_case(cuda, c=12, nt_override=10)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        wc.wave_cycle(gp, F, G, s_group_size=12)
+    with pytest.raises(ValueError, match="s_group_size"):
+        wc.wave_cycle(gp, F, G, s_group_size=8)
+    big = 256  # S alone is 256 KB: more than a block's shared memory
+    z = torch.zeros((8, big), device=cuda)
+    p = gp._replace(S=torch.zeros((1, big, big), device=cuda), Ha=z, inv_mi=z)
+    with pytest.raises(ValueError, match="shared memory"):
+        wc.wave_cycle(p, z, z, s_group_size=8)
