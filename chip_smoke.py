@@ -28,10 +28,28 @@ It imports nothing of JAX.  Phases, each raising on failure:
 6. ``run_config(ddh_unstructured_square)`` at full size: its probes run
    layout (b) (launches > 0), the solve none; <= 100 restarts, matvecs
    within two restarts of the JAX run's 668, plain-cycle residual <= 1.2e-4.
+7. ``run_config(ddh_512_block32)`` (nx 512, 4,096 subdomains of 625 DOFs,
+   pad 632) on the transfer path: its probes run the streamed kernel in
+   layout (a) (S is 1.6 MB); restarts within one of the JAX run's 25,
+   matvecs within one restart of 522, no kernel in a repeated solve,
+   plain-cycle residual <= 1.2e-4.
+8. The streamed kernel in layout (a) against the plain cycle on that DDH's
+   transfer-probe rows (65 unique subdomains x 192 columns, pad 632, nt 800).
+9. ``large_unstructured`` at ``--levels 3 --domains 256`` (7,616 elements,
+   pad 320, one S per domain): probes run the streamed kernel in layout
+   (b); restarts within one of the JAX run's 18, matvecs within one restart
+   of 373, the checks of phase 7.
+10. The streamed kernel in layout (b) against the plain cycle on that DDH's
+   transfer-probe rows (256 runs of 192 rows, pad 320, nt 1,283).
+11. The streamed kernel forced at the flagship shape (pad 176) against the
+   resident kernel and the plain cycle.
+Every comparison holds the kernel within 2e-4 of the plain cycle relative
+to the max of u and v, with padded slots exactly 0.
 
 Every kernel count is set to 0 just before each main-path run (phases 3, 5,
-6) and read just after; the ``launches`` of a layout in the JSON line is the
-sum over those runs.  ``bound_ms`` is the larger of the padded-shape FP32 FMA
+6, 7, 9) and read just after; the ``launches`` of a kernel in the JSON line
+is the sum over those runs.  Comparisons run after the main-path runs and
+are not counted.  ``bound_ms`` is the larger of the padded-shape FP32 FMA
 work over 67 TFLOP/s and the bytes read and written once over 3.35 TB/s
 (H100 SXM peaks); no single PyTorch call computes a WaveHoltz cycle, so
 ``library_ms`` is null.
@@ -57,16 +75,22 @@ def _fail(msg: str) -> None:
 
 def _cuda_ms(fn, reps: int) -> float:
     """Mean milliseconds per call of ``fn`` on the current stream."""
+    return _timed(fn, reps)[1]
+
+
+def _timed(fn, reps: int = 1):
+    """(last result, mean CUDA-event milliseconds per call) of ``reps``
+    calls of ``fn`` on the current stream."""
     import torch
 
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
-        fn()
+        out = fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return out, start.elapsed_time(end) / reps
 
 
 def _rel_max(got, want) -> float:
@@ -88,25 +112,28 @@ def _cycle_bound(S, rows: int, pad: int, nt: int, wh_maxit: int) -> tuple[float,
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def _compare(wc, p, F, G, wh_maxit, pad_mask, what, **kw):
+def _compare(wc, p, F, G, wh_maxit, pad_mask, what, reps=3, streamed=False, **kw):
     """Kernel vs plain on the same inputs; returns (max abs err, kernel ms,
-    plain ms).  Raises on a relative error >= 2e-4 or non-zero padding."""
+    plain ms, kernel (u, v)).  Raises on a relative error >= 2e-4 or
+    non-zero padding.  ``streamed`` forces the streamed kernel; the plain
+    cycle is timed on its checked call, the kernel over ``reps`` launches
+    after its checked one."""
     import torch
 
-    u_k, v_k = wc.wave_cycle(p, F, G, wh_maxit, **kw)
+    u_k, v_k = wc.wave_cycle(p, F, G, wh_maxit, streamed=streamed, **kw)
     torch.cuda.synchronize()
-    u_p, v_p = wc.wave_cycle_plain(p, F, G, wh_maxit, **kw)
+    (u_p, v_p), plain_ms = _timed(lambda: wc.wave_cycle_plain(p, F, G, wh_maxit, **kw))
     err_u, err_v = _rel_max(u_k, u_p), _rel_max(v_k, v_p)
     abs_err = max(float((u_k - u_p).abs().max()), float((v_k - v_p).abs().max()))
     if not (np.isfinite([err_u, err_v]).all() and err_u < 2e-4 and err_v < 2e-4):
         _fail(f"{what}: kernel disagrees with the plain cycle: rel u {err_u:.3e}, v {err_v:.3e}")
     if bool((u_k[pad_mask] != 0).any()) or bool((v_k[pad_mask] != 0).any()):
         _fail(f"{what}: kernel wrote non-zero values into padded slots")
-    ms = _cuda_ms(lambda: wc.wave_cycle(p, F, G, wh_maxit, **kw), reps=3)
-    plain_ms = _cuda_ms(lambda: wc.wave_cycle_plain(p, F, G, wh_maxit, **kw), reps=1)
+    del u_p, v_p
+    ms = _cuda_ms(lambda: wc.wave_cycle(p, F, G, wh_maxit, streamed=streamed, **kw), reps)
     print(f"{what}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms per cycle; "
           f"rel err u {err_u:.3e} v {err_v:.3e}, max abs err {abs_err:.3e}")
-    return abs_err, ms, plain_ms
+    return abs_err, ms, plain_ms, (u_k, v_k)
 
 
 def _masked_normal(rng, mask, dev):
@@ -129,9 +156,11 @@ def _plain_residual(wc, ddh, b, lam) -> float:
     return float(torch.linalg.vector_norm(Y - AX) / torch.linalg.vector_norm(Y))
 
 
-def _transfer_run(wc, run, what, max_restarts, jax_matvecs, matvec_slack, gm):
+def _transfer_run(wc, run, what, max_restarts, jax_matvecs, matvec_slack, gm,
+                  jax_restarts=None):
     """Drive one transfer-path run; check it and return (result, launches by
-    layout during the run)."""
+    kernel and layout during the run).  With ``jax_restarts`` the restarts
+    must be within one of it."""
     import torch
 
     from cuddhelmholtz_tpu_torch.examples.drivers import point_sources
@@ -165,6 +194,8 @@ def _transfer_run(wc, run, what, max_restarts, jax_matvecs, matvec_slack, gm):
         _fail(f"{what}: solve did not converge")
     if res.num_iter > max_restarts:
         _fail(f"{what}: {res.num_iter} restarts (> {max_restarts})")
+    if jax_restarts is not None and abs(res.num_iter - jax_restarts) > 1:
+        _fail(f"{what}: {res.num_iter} restarts, JAX {jax_restarts} (+-1)")
     if abs(res.num_matvec - jax_matvecs) > matvec_slack:
         _fail(f"{what}: {res.num_matvec} matvecs, JAX {jax_matvecs} (+-{matvec_slack})")
     if solve_launches != 0:
@@ -185,8 +216,10 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
 
+    from cuddhelmholtz_tpu_torch.config import DDH_512_BLOCK32 as bcfg
     from cuddhelmholtz_tpu_torch.config import DDH_STRUCTURED as cfg
     from cuddhelmholtz_tpu_torch.config import DDH_UNSTRUCTURED_SQUARE as ucfg
+    from cuddhelmholtz_tpu_torch.examples import large_unstructured as lu
     from cuddhelmholtz_tpu_torch.examples.drivers import (
         point_sources,
         run_config,
@@ -195,6 +228,7 @@ def main() -> int:
     )
     from cuddhelmholtz_tpu_torch.mesh.io import load_unstructured_square
     from cuddhelmholtz_tpu_torch.mesh.mesh2d import Mesh2D
+    from cuddhelmholtz_tpu_torch.mesh.refine import refine_quad_mesh
     from cuddhelmholtz_tpu_torch.models.helmholtz import helmholtz_rhs
     from cuddhelmholtz_tpu_torch.ops.cuda import wave_cycle as wc
     from cuddhelmholtz_tpu_torch.ops.functional import linear_functional
@@ -213,10 +247,13 @@ def main() -> int:
 
     # --- 1. build --------------------------------------------------------------
     t0 = time.perf_counter()
-    lib_path = wc.build()
-    wc._library()
-    print(f"build: {time.perf_counter() - t0:.2f} s -> {lib_path.name}")
-    print(lib_path.with_suffix(".log").read_text().strip())
+    lib_paths = wc.build()
+    for variant in lib_paths:
+        wc._library(variant)
+    print(f"build: {time.perf_counter() - t0:.2f} s -> "
+          f"{', '.join(path.name for path in lib_paths.values())}")
+    for path in lib_paths.values():
+        print(path.with_suffix(".log").read_text().strip())
 
     # --- 2. kernel vs plain at the flagship shape -------------------------------
     nx, deg = cfg.nx, cfg.deg
@@ -240,8 +277,8 @@ def main() -> int:
     F = torch.from_numpy((rng.standard_normal(gmask.shape) * gmask).astype(np.float32)).to(dev)
     G = torch.from_numpy((rng.standard_normal(gmask.shape) * gmask).astype(np.float32)).to(dev)
 
-    abs_err, ms, plain_ms = _compare(wc, p, F, G, ddh.wh_maxit, ddh.gmask == 0,
-                                     "wave cycle (a), flagship")
+    abs_err, ms, plain_ms, uv_res = _compare(wc, p, F, G, ddh.wh_maxit, ddh.gmask == 0,
+                                             "wave cycle (a), flagship")
     flop = 2 * 2 * ddh.wh_maxit * ddh.nt * ddh.n_domains * ddh.pad**2
     bound_a, by_a = _cycle_bound(p.S, ddh.n_domains, ddh.pad, ddh.nt, ddh.wh_maxit)
     print(f"wave cycle (a): {flop / ms / 1e9:.1f} TFLOP/s on padded shapes ({flop:.3e} FLOP), "
@@ -263,8 +300,9 @@ def main() -> int:
         _fail("flagship solve did not converge")
     if res.num_iter > 20:
         _fail(f"flagship solve took {res.num_iter} restarts (> 20)")
-    if launches != {"shared": res.num_matvec + 2, "grouped": 0}:
-        _fail(f"kernel launches {launches} != num_matvec + 2 = {res.num_matvec + 2}")
+    if launches != {**dict.fromkeys(launches, 0), "shared": res.num_matvec + 2}:
+        _fail(f"kernel launches {launches}: want num_matvec + 2 = {res.num_matvec + 2} "
+              "resident layout-(a) launches and no other")
     U = res.solution
     if U.shape != (2 * res.extra["ndof"],) or not np.isfinite(U).all():
         _fail(f"solution has shape {U.shape} or non-finite values")
@@ -299,14 +337,14 @@ def main() -> int:
     gmask = uddh.gmask[ui].repeat_interleave(c, 0)
     gm = gmask.cpu().numpy()
     Fb, Gb = _masked_normal(rng, gm, dev), _masked_normal(rng, gm, dev)
-    abs_err_b, ms_b, plain_ms_b = _compare(
+    abs_err_b, ms_b, plain_ms_b, _ = _compare(
         wc, gp, Fb, Gb, uddh.wh_maxit, gmask == 0,
         f"wave cycle (b), {nu * c} rows in runs of {c}", s_group_size=c)
     bound_b, by_b = _cycle_bound(gp.S, nu * c, uddh.pad, uddh.nt, uddh.wh_maxit)
     print(f"wave cycle (b): bound {bound_b:.3f} ms ({by_b})")
     um = uddh.gmask.cpu().numpy()
     Fc, Gc = _masked_normal(rng, um, dev), _masked_normal(rng, um, dev)
-    abs_err_c, ms_c, plain_ms_c = _compare(
+    abs_err_c, ms_c, plain_ms_c, _ = _compare(
         wc, up, Fc, Gc, uddh.wh_maxit, uddh.gmask == 0,
         f"wave cycle (c), {uddh.n_domains} rows tiled x{wc.ROWS_PER_BLOCK}")
     bound_c, by_c = _cycle_bound(up.S, uddh.n_domains, uddh.pad, uddh.nt, uddh.wh_maxit)
@@ -337,35 +375,112 @@ def main() -> int:
     for k in total:
         total[k] += launches[k]
     del res6
+
+    # --- 7. ddh_512_block32, transfer path: probes run the streamed kernel --
+    res7, launches = _transfer_run(
+        wc, lambda: run_config(bcfg, device=dev), "ddh_512_block32 transfer solve",
+        max_restarts=bcfg.gmres.maxit, jax_matvecs=522, matvec_slack=bcfg.gmres.m + 1,
+        gm=bcfg.gmres, jax_restarts=25)
+    bddh = res7.extra["ddh"]
+    if (bddh.pad, bddh.shared_S, bddh.n_domains) != (632, True, 4096):
+        _fail(f"ddh_512_block32: pad {bddh.pad}, shared_S {bddh.shared_S}, "
+              f"{bddh.n_domains} domains; want 632, True, 4096")
+    if launches["streamed_shared"] == 0 or launches["shared"] != 0:
+        _fail(f"ddh_512_block32 probes did not run the streamed layout-(a) kernel: {launches}")
+    for k in total:
+        total[k] += launches[k]
+
+    # --- 8. streamed layout (a) vs plain on its transfer-probe rows -----------
+    uidx, _, nu = bddh._domain_groups()
+    c = 2 * bddh._fslot_np.shape[1]
+    ui = torch.as_tensor(uidx, device=dev)
+    bp = bddh.params
+    pa = bp._replace(Ha=bp.Ha[ui].repeat(c, 1), inv_mi=bp.inv_mi[ui].repeat(c, 1))
+    amask = bddh.gmask[ui].repeat(c, 1)
+    am = amask.cpu().numpy()
+    Fa, Ga = _masked_normal(rng, am, dev), _masked_normal(rng, am, dev)
+    abs_err_sa, ms_sa, plain_ms_sa, _ = _compare(
+        wc, pa, Fa, Ga, bddh.wh_maxit, amask == 0,
+        f"streamed (a), ddh_512_block32 transfer probe ({nu} x {c} rows, pad {bddh.pad})",
+        reps=1)
+    rows_sa, pad_sa, nt_sa = nu * c, bddh.pad, bddh.nt
+    flop_sa = 2 * 2 * bddh.wh_maxit * nt_sa * rows_sa * pad_sa**2
+    bound_sa, by_sa = _cycle_bound(pa.S, rows_sa, pad_sa, nt_sa, bddh.wh_maxit)
+    print(f"streamed (a): {flop_sa / ms_sa / 1e9:.2f} TFLOP/s on padded shapes "
+          f"({flop_sa:.3e} FLOP), bound {bound_sa:.3f} ms ({by_sa})")
+    del res7, bddh, bp, pa, Fa, Ga, amask
+    torch.cuda.empty_cache()
+
+    # --- 9. large_unstructured L3, 256 domains: grouped streamed probes -------
+    lmesh = refine_quad_mesh(load_unstructured_square(), 3)
+    lomega = 2 * np.pi / (5.0 * lu.median_h(lmesh))
+    res9, launches = _transfer_run(
+        wc, lambda: lu.solve_case(lmesh, 256, 3, lomega, ucfg.gmres.tol, device=dev),
+        "large_unstructured L3 transfer solve", max_restarts=ucfg.gmres.maxit,
+        jax_matvecs=373, matvec_slack=ucfg.gmres.m + 1, gm=ucfg.gmres, jax_restarts=18)
+    rec = lu.case_record("unstructured_L3", lmesh, res9)
+    print(f"large_unstructured record: {json.dumps(rec)}")
+    lddh = res9.extra["ddh"]
+    pre = res9.extra["precompute"]
+    if (lddh.pad, lddh.shared_S, pre["transfer_nu"], pre["transfer_layout"]) != (
+            320, False, 256, "grouped"):
+        _fail(f"L3: pad {lddh.pad}, shared_S {lddh.shared_S}, nu {pre['transfer_nu']}, "
+              f"layout {pre['transfer_layout']}; want 320, False, 256, grouped")
+    if launches["streamed_grouped"] == 0 or launches["grouped"] != 0:
+        _fail(f"L3 probes did not run the streamed layout-(b) kernel: {launches}")
+    for k in total:
+        total[k] += launches[k]
+
+    # --- 10. streamed layout (b) vs plain on its transfer-probe rows ----------
+    uidx, _, nu = lddh._domain_groups()
+    c = 2 * lddh._fslot_np.shape[1]
+    ui = torch.as_tensor(uidx, device=dev)
+    lp = lddh.params
+    pb = lp._replace(S=lp.S[ui].contiguous(), Ha=lp.Ha[ui].repeat_interleave(c, 0),
+                     inv_mi=lp.inv_mi[ui].repeat_interleave(c, 0))
+    bmask = lddh.gmask[ui].repeat_interleave(c, 0)
+    bm = bmask.cpu().numpy()
+    Fb, Gb = _masked_normal(rng, bm, dev), _masked_normal(rng, bm, dev)
+    abs_err_sb, ms_sb, plain_ms_sb, _ = _compare(
+        wc, pb, Fb, Gb, lddh.wh_maxit, bmask == 0,
+        f"streamed (b), L3 transfer probe ({nu} runs of {c} rows, pad {lddh.pad})",
+        reps=1, s_group_size=c)
+    rows_sb, pad_sb, nt_sb = nu * c, lddh.pad, lddh.nt
+    flop_sb = 2 * 2 * lddh.wh_maxit * nt_sb * rows_sb * pad_sb**2
+    bound_sb, by_sb = _cycle_bound(pb.S, rows_sb, pad_sb, nt_sb, lddh.wh_maxit)
+    print(f"streamed (b): {flop_sb / ms_sb / 1e9:.2f} TFLOP/s on padded shapes "
+          f"({flop_sb:.3e} FLOP), bound {bound_sb:.3f} ms ({by_sb})")
+    del res9, lddh, lp, pb, Fb, Gb, bmask
+    torch.cuda.empty_cache()
+
+    # --- 11. streamed against resident at the flagship shape (pad 176) --------
+    abs_err_s176, ms_s176, _, (u_s, v_s) = _compare(
+        wc, p, F, G, ddh.wh_maxit, ddh.gmask == 0, "streamed (a) forced, flagship", streamed=True)
+    err_sr = max(_rel_max(u_s, uv_res[0]), _rel_max(v_s, uv_res[1]))
+    print(f"streamed vs resident at pad {ddh.pad}: rel err {err_sr:.3e} "
+          f"(resident {ms:.3f} ms, streamed {ms_s176:.3f} ms per cycle)")
+    if not err_sr < 2e-4:
+        _fail(f"streamed and resident kernels disagree at pad {ddh.pad}: {err_sr:.3e}")
     print(f"kernel launches over the main-path runs: {total}")
 
+    def entry(name, source, line, key, err, kms, pms, bound, by):
+        return {
+            "name": name, "route": "cuda", "source": f"cuddhelmholtz_tpu_torch/csrc/{source}",
+            "replaces": f"cuddhelmholtz_tpu/ops/pallas/wave_cycle.py:{line}",
+            "launches": total[key], "max_abs_err": err, "ms": kms, "plain_ms": pms,
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+        }
+
     print(json.dumps({"kernels": [
-        {
-            "name": "wave_cycle (a) shared S",
-            "route": "cuda",
-            "source": "cuddhelmholtz_tpu_torch/csrc/wave_cycle.cu",
-            "replaces": "cuddhelmholtz_tpu/ops/pallas/wave_cycle.py:69",
-            "launches": total["shared"],
-            "max_abs_err": abs_err,
-            "ms": ms,
-            "plain_ms": plain_ms,
-            "bound_ms": bound_a,
-            "bound_by": by_a,
-            "library_ms": None,
-        },
-        {
-            "name": "wave_cycle (b) grouped S",
-            "route": "cuda",
-            "source": "cuddhelmholtz_tpu_torch/csrc/wave_cycle.cu",
-            "replaces": "cuddhelmholtz_tpu/ops/pallas/wave_cycle.py:201",
-            "launches": total["grouped"],
-            "max_abs_err": max(abs_err_b, abs_err_c),
-            "ms": ms_b,
-            "plain_ms": plain_ms_b,
-            "bound_ms": bound_b,
-            "bound_by": by_b,
-            "library_ms": None,
-        },
+        entry("wave_cycle (a) shared S", "wave_cycle.cu", 69, "shared", abs_err, ms, plain_ms,
+              bound_a, by_a),
+        entry("wave_cycle (b) grouped S", "wave_cycle.cu", 201, "grouped",
+              max(abs_err_b, abs_err_c), ms_b, plain_ms_b, bound_b, by_b),
+        entry("wave_cycle streamed (a) shared S", "wave_cycle_streamed.cu", 69,
+              "streamed_shared", max(abs_err_sa, abs_err_s176), ms_sa, plain_ms_sa,
+              bound_sa, by_sa),
+        entry("wave_cycle streamed (b) grouped S", "wave_cycle_streamed.cu", 201,
+              "streamed_grouped", abs_err_sb, ms_sb, plain_ms_sb, bound_sb, by_sb),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -4,13 +4,15 @@ The JAX package stays the reference; this package mirrors its layout so each
 counterpart is easy to find:
 
   utils/      quadrature rules, nodal bases, ``norm``       (NumPy float64 setup)
-  mesh/       Mesh2D geometry + metric caches
+  mesh/       Mesh2D geometry + metric caches, mesh files, refinement
   spaces/     H1Space, EnsembleSpace (subdomain tables, ``cmap``)
   ops/        lumped mass, collocation functional; ops/cuda: the Hopper
-              WaveHoltz kernel (``csrc/wave_cycle.cu``) and its plain version
+              WaveHoltz kernels (``csrc/wave_cycle.cu``, S resident in shared
+              memory; ``csrc/wave_cycle_streamed.cu``, S streamed) and their
+              plain version
   models/     Helmholtz forcing
-  solvers/    GMRES(m), the DDH preconditioner (direct path)
-  examples/   ``run_ddh``
+  solvers/    GMRES(m), the DDH preconditioner (direct and transfer/io paths)
+  examples/   ``run_ddh``, ``run_config``, ``large_unstructured``, ``profile_solve``
 
 It imports ``torch`` and never ``jax``.  Host setup runs in NumPy float64 as
 the JAX package does; device state is float32.

@@ -1,10 +1,10 @@
 """Problem/solver configuration dataclasses.
 
 Counterpart of ``cuddhelmholtz_tpu/config.py`` (copied: importing the JAX
-module would import jax).  The two DDH entries are carried, ``ddh_structured``
-and ``ddh_unstructured_square``, with the fields the port reads; the JAX
-package's ``coarse``, ``rhs_split`` and ``n_sources`` fields come with the
-code that reads them.
+module would import jax).  Three DDH entries are carried, ``ddh_structured``,
+``ddh_unstructured_square`` and ``ddh_512_block32``, with the fields the port
+reads; the JAX package's ``coarse``, ``rhs_split`` and ``n_sources`` fields
+come with the code that reads them.
 """
 
 from __future__ import annotations
@@ -52,5 +52,15 @@ DDH_UNSTRUCTURED_SQUARE = ProblemConfig(
     nx=8,  # sets omega; geometry comes from the mesh file
     mesh="unstructured_square",
     n_domains=8,
+    gmres=GmresConfig(m=20, maxit=100, tol=1e-4),
+)
+
+# 2.4M DOFs at 4x the reference frequency with 32-DOF subdomain blocks
+# (4,096 subdomains of 625 DOFs, pad 632): the stiffness exceeds a block's
+# shared memory, so its probes run the streamed kernel
+DDH_512_BLOCK32 = ProblemConfig(
+    name="ddh_512_block32",
+    nx=512,  # omega = 2*pi*51.2
+    block_size=32,
     gmres=GmresConfig(m=20, maxit=100, tol=1e-4),
 )

@@ -49,8 +49,10 @@
 // shared memory for the whole cycle, so the FMA work per row is the same and
 // the extra device-memory traffic is one S per block (124 KB against ~5e8
 // FLOP of block work at pad 176, nt 800).
-// Known limits, left for later work: S must fit in shared memory (pad up to
-// about 220), and the kernel runs at about a third of the FP32 FMA peak.
+// S must fit in shared memory beside the row state (pad up to 224 on an
+// H100); larger pads run csrc/wave_cycle_streamed.cu, which streams S
+// through shared memory.  The kernel runs at about a third of the FP32 FMA
+// peak.
 
 #include <cuda_runtime.h>
 

@@ -58,8 +58,8 @@ class DriverResult:
 
 
 def run_config(cfg, **overrides) -> DriverResult:
-    """Run a ``ProblemConfig`` (``config.DDH_STRUCTURED`` or
-    ``config.DDH_UNSTRUCTURED_SQUARE``).
+    """Run a ``ProblemConfig`` (``config.DDH_STRUCTURED``,
+    ``config.DDH_UNSTRUCTURED_SQUARE`` or ``config.DDH_512_BLOCK32``).
 
     ``overrides`` replace config fields (``m``, ``maxit`` and ``tol`` go to
     the GMRES settings); ``device`` is passed on to ``run_ddh``.
@@ -96,6 +96,7 @@ def run_ddh(
     transfer: bool = False,
     block_size: int = 16,
     coarse: str | None = None,
+    omega: float | None = None,
     *,
     device="cuda",
 ) -> DriverResult:
@@ -103,9 +104,11 @@ def run_ddh(
 
     With the default structured mesh this is the reference configuration
     (16x16-DOF subdomains); pass ``mesh`` + ``element_labels`` for other
-    partitions.  ``transfer=True`` precomputes the per-subdomain
-    trace-transfer matrices (and on a GPU the rhs/postprocess io maps) in
-    ``DDH.prepare``; the solve then runs no wave cycle.  ``seconds`` is the
+    partitions; ``omega`` replaces the default 2 pi nx / 10 (the
+    ``large_unstructured`` example sets it from the mesh size).
+    ``transfer=True`` precomputes the per-subdomain trace-transfer matrices
+    (and on a GPU the rhs/postprocess io maps) in ``DDH.prepare``; the solve
+    then runs no wave cycle.  ``seconds`` is the
     solve (rhs, lambda-GMRES, postprocess), synchronised on the device;
     ``extra["setup_seconds"]`` includes ``prepare``, whose stats are
     ``extra["precompute"]``.  ``extra["lam"]`` is the substructured solution
@@ -116,7 +119,8 @@ def run_ddh(
             "coarse: the two-level coarse space is not ported yet (ROADMAP queue 1, item 15)"
         )
     device = check_device(device)
-    omega = 2 * np.pi * nx / 10
+    if omega is None:
+        omega = 2 * np.pi * nx / 10
     if mesh is None:
         mesh = Mesh2D.uniform_rect(nx, -1.0, 1.0, nx, -1.0, 1.0)
     fem = H1Space(mesh, Basis(deg + 1))

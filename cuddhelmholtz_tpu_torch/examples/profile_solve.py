@@ -10,7 +10,7 @@ share, device work and device operations per matvec, and the ten kinds of
 device work that took longest.
 
     python -m cuddhelmholtz_tpu_torch.examples.profile_solve \\
-        [--config ddh_structured|ddh_unstructured_square] [--direct]
+        [--config ddh_structured|ddh_unstructured_square|ddh_512_block32] [--direct]
 
 Needs a CUDA device; it refuses to run without one.
 """
@@ -24,11 +24,11 @@ import time
 
 import torch
 
-from ..config import DDH_STRUCTURED, DDH_UNSTRUCTURED_SQUARE
+from ..config import DDH_512_BLOCK32, DDH_STRUCTURED, DDH_UNSTRUCTURED_SQUARE
 from ..examples.drivers import point_sources, run_config
 from ..models.helmholtz import helmholtz_rhs
 
-CONFIGS = {c.name: c for c in (DDH_STRUCTURED, DDH_UNSTRUCTURED_SQUARE)}
+CONFIGS = {c.name: c for c in (DDH_STRUCTURED, DDH_UNSTRUCTURED_SQUARE, DDH_512_BLOCK32)}
 
 
 def main() -> None:

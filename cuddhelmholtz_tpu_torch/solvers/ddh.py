@@ -23,8 +23,10 @@ The disk cache of the precomputed maps, the window-patch io variant and the
 coarse space are not ported yet.
 
 The port pads a subdomain to a multiple of ``PAD_MULTIPLE`` = 8 DOFs (169 ->
-176 at the flagship) instead of the JAX package's 128, so the fp32 stiffness
-(124 KB) fits in one SM's shared memory.
+176 at the flagship, 625 -> 632 with 32-DOF blocks) instead of the JAX
+package's 128, so the flagship's fp32 stiffness (124 KB) stays resident in
+one SM's shared memory; larger ones are streamed through it (the wave-cycle
+wrapper picks the kernel by pad).
 """
 
 from __future__ import annotations

@@ -170,8 +170,8 @@ def test_run_ddh_unported_options_raise():
 
 
 def test_port_imports_no_jax():
-    mods = ("examples.drivers", "config", "mesh.io", "spaces.ensemble", "solvers.ddh",
-            "ops.cuda.wave_cycle")
+    mods = ("examples.drivers", "examples.large_unstructured", "config", "mesh.io",
+            "mesh.refine", "spaces.ensemble", "solvers.ddh", "ops.cuda.wave_cycle")
     code = ("import sys; " + "; ".join(f"import cuddhelmholtz_tpu_torch.{m}" for m in mods)
             + "; assert 'jax' not in sys.modules; assert 'cuddhelmholtz_tpu' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)

@@ -102,8 +102,8 @@ def test_plain_matches_pallas_interpret():
 
 
 def test_plain_per_domain_matches_xla_scan():
-    """Per-domain (ndom, pad, pad) stiffness: the plain cycle serves it on
-    the CPU (the CUDA kernel covers the shared layout only)."""
+    """Per-domain (ndom, pad, pad) stiffness (layout (c)) in the plain
+    cycle."""
     jddh_mod, jparams, F, G, port, pad = _jax_case(nt_override=60, jitter=True)
     import jax.numpy as jnp
 
@@ -152,13 +152,14 @@ def test_plain_grouped_matches_per_row():
 
 @pytest.mark.parametrize("pad,fits", [(56, True), (176, True), (216, True), (256, False)])
 def test_shared_memory_admission(pad, fits):
-    """H100 opt-in limit: 232,448 B per block.  The flagship pad (176) fits;
-    the JAX package's pad of 256 does not."""
-    if fits:
-        wc.check_shared_memory(pad, 232448)
-    else:
-        with pytest.raises(ValueError, match="shared memory"):
-            wc.check_shared_memory(pad, 232448)
+    """H100 opt-in limit: 232,448 B per block.  Up to the flagship pad (176)
+    and beyond, S fits beside the row state and the resident kernel runs;
+    at the JAX package's pad of 256 it does not, and the streamed kernel
+    takes the cycle."""
+    limit = 232448
+    assert wc.kernel_variant(pad, limit) == ("resident" if fits else "streamed")
+    assert wc.kernel_variant(pad, limit, streamed=True) == "streamed"
+    assert (wc.shared_memory_bytes(pad) <= limit) == fits
 
 
 # ------------------------------------------------------------ on the GPU
@@ -235,6 +236,8 @@ def test_kernel_grouped_matches_plain(cuda, c):
 
 @pytest.mark.cuda
 def test_kernel_refuses_bad_groups_and_large_pad(cuda):
+    """Bad runs still raise; a pad whose S exceeds a block's shared memory
+    runs the streamed kernel."""
     _, gp, F, G, _ = _grouped_case(cuda, c=12, nt_override=10)
     with pytest.raises(ValueError, match="multiple of 8"):
         wc.wave_cycle(gp, F, G, s_group_size=12)
@@ -243,5 +246,8 @@ def test_kernel_refuses_bad_groups_and_large_pad(cuda):
     big = 256  # S alone is 256 KB: more than a block's shared memory
     z = torch.zeros((8, big), device=cuda)
     p = gp._replace(S=torch.zeros((1, big, big), device=cuda), Ha=z, inv_mi=z)
-    with pytest.raises(ValueError, match="shared memory"):
-        wc.wave_cycle(p, z, z, s_group_size=8)
+    before = dict(wc.wave_cycle.launches)
+    u, v = wc.wave_cycle(p, z, z, s_group_size=8)
+    torch.cuda.synchronize()
+    assert wc.wave_cycle.launches == {**before, "streamed_grouped": before["streamed_grouped"] + 1}
+    assert (u == 0).all() and (v == 0).all()
