@@ -4,55 +4,60 @@
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It imports nothing of JAX.  Phases, each raising on failure:
 
-1. The card: ``nvidia-smi`` name and power limit; build the WaveHoltz kernel
-   from ``cuddhelmholtz_tpu_torch/csrc/wave_cycle.cu`` with nvcc (timed).
-2. Kernel vs plain at the flagship shape: one wave cycle of the
+1. The card: ``nvidia-smi`` name and power limit; build the three WaveHoltz
+   kernels from ``cuddhelmholtz_tpu_torch/csrc/`` with one nvcc each,
+   started together (timed).
+2. Kernels vs plain at the flagship shape: one wave cycle of the
    ``ddh_structured`` DDH (1,024 subdomains, pad 176, nt 800) on masked random
-   (F, G) through the kernel and through the plain PyTorch cycle; max error
-   over max magnitude of u and v must be < 2e-4.  Times both per cycle with
-   CUDA events.
+   (F, G) through the sparse kernel (the default), the resident and the
+   streamed kernels (forced) and the plain PyTorch cycle.  Times each kernel
+   in turns (sparse, dense, dense, sparse) with CUDA events, the plain cycle
+   once, and the build of the sparse form.
 3. The flagship solve ``run_ddh(nx=128, deg=3)`` on the direct path: it must
-   succeed in <= 20 restarts, the kernel must have launched exactly
-   ``num_matvec + 2`` times (every matvec, rhs and postprocess), and the
-   lambda residual recomputed with the plain cycle must be <= 1.2e-4.
-4. The grouped-S layout (b) against its plain version at the
-   ``ddh_unstructured_square`` transfer-probe shape (S (8, 168, 168), 960 rows
-   in runs of 120, nt 1,717), and the per-row layout (c) (each row tiled x8
-   onto (b)) at that DDH's own shape; < 2e-4 relative to the max, padded
-   slots exactly 0, CUDA-event times for both.
+   succeed in <= 20 restarts, the sparse kernel must have launched exactly
+   ``num_matvec + 2`` times (every matvec, rhs and postprocess) and no dense
+   one, and the lambda residual recomputed with the plain cycle must be
+   <= 1.2e-4.
+4. The grouped-S layout (b), sparse against the plain cycle and the
+   resident kernel, at the ``ddh_unstructured_square`` transfer-probe shape
+   (S (8, 168, 168), 960 rows in runs of 120, nt 1,717), and the per-row
+   layout (c) (each row tiled x8 onto (b)) at that DDH's own shape.
 5. The flagship transfer solve ``run_ddh(nx=128, deg=3, transfer=True)``:
    prepare (transfer + io probes, layout (a)), then a solve that launches no
    kernel (checked by solving again on the prepared operator); <= 20
    restarts, matvecs within one restart of the JAX run's 366, plain-cycle
    lambda residual <= 1.2e-4.
-6. ``run_config(ddh_unstructured_square)`` at full size: its probes run
-   layout (b) (launches > 0), the solve none; <= 100 restarts, matvecs
+6. ``run_config(ddh_unstructured_square)`` at full size: its probes run the
+   sparse kernel in layout (b), the solve none; <= 100 restarts, matvecs
    within two restarts of the JAX run's 668, plain-cycle residual <= 1.2e-4.
 7. ``run_config(ddh_512_block32)`` (nx 512, 4,096 subdomains of 625 DOFs,
-   pad 632) on the transfer path: its probes run the streamed kernel in
-   layout (a) (S is 1.6 MB); restarts within one of the JAX run's 25,
-   matvecs within one restart of 522, no kernel in a repeated solve,
-   plain-cycle residual <= 1.2e-4.
-8. The streamed kernel in layout (a) against the plain cycle on that DDH's
+   pad 632) on the transfer path: its probes run the sparse kernel in
+   layout (a) (the dense S is 1.6 MB, its non-zeros 59 KB); restarts within
+   one of the JAX run's 25, matvecs within one restart of 522, no kernel in
+   a repeated solve, plain-cycle residual <= 1.2e-4.
+8. Sparse and streamed layout (a) against the plain cycle on that DDH's
    transfer-probe rows (65 unique subdomains x 192 columns, pad 632, nt 800).
 9. ``large_unstructured`` at ``--levels 3 --domains 256`` (7,616 elements,
-   pad 320, one S per domain): probes run the streamed kernel in layout
-   (b); restarts within one of the JAX run's 18, matvecs within one restart
-   of 373, the checks of phase 7.
-10. The streamed kernel in layout (b) against the plain cycle on that DDH's
+   pad 320, one S per domain): probes run the sparse kernel in layout (b);
+   restarts within one of the JAX run's 18, matvecs within one restart of
+   373, the checks of phase 7.
+10. Sparse and streamed layout (b) against the plain cycle on that DDH's
    transfer-probe rows (256 runs of 192 rows, pad 320, nt 1,283).
 11. The streamed kernel forced at the flagship shape (pad 176) against the
-   resident kernel and the plain cycle.
-Every comparison holds the kernel within 2e-4 of the plain cycle relative
-to the max of u and v, with padded slots exactly 0.
+   resident and sparse kernels of phase 2.
+Every comparison holds a kernel within 2e-4 of the plain cycle relative to
+the max of u and v, with padded slots exactly 0.  The main-path runs
+(phases 3, 5, 6, 7, 9) must launch the sparse kernel and no dense one.
 
-Every kernel count is set to 0 just before each main-path run (phases 3, 5,
-6, 7, 9) and read just after; the ``launches`` of a kernel in the JSON line
-is the sum over those runs.  Comparisons run after the main-path runs and
-are not counted.  ``bound_ms`` is the larger of the padded-shape FP32 FMA
-work over 67 TFLOP/s and the bytes read and written once over 3.35 TB/s
-(H100 SXM peaks); no single PyTorch call computes a WaveHoltz cycle, so
-``library_ms`` is null.
+Every kernel count is set to 0 just before each main-path run and read just
+after; the ``launches`` of a kernel in the JSON line is the sum over those
+runs.  Comparisons run after the main-path runs and are not counted.
+``bound_ms`` is the larger of the FP32 FMA work on the non-zeros of S
+(2 products of the rows by the exact non-zeros per leapfrog step) over
+67 TFLOP/s and the bytes read once (F, G, Ha, mi, tables and S's sparse
+form) and written once (u, v) over 3.35 TB/s (H100 SXM peaks), the same
+for the sparse and the dense kernels, which compute the same function; no
+single PyTorch call computes a WaveHoltz cycle, so ``library_ms`` is null.
 
 Output: diagnostics, then a ``{"kernels": [...]}`` JSON line, the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Exits
@@ -71,11 +76,6 @@ import numpy as np
 
 def _fail(msg: str) -> None:
     raise RuntimeError(f"chip_smoke: {msg}")
-
-
-def _cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call of ``fn`` on the current stream."""
-    return _timed(fn, reps)[1]
 
 
 def _timed(fn, reps: int = 1):
@@ -99,41 +99,93 @@ def _rel_max(got, want) -> float:
 
 PEAK_FP32_FLOPS = 67e12  # H100 SXM, FP32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+DENSE = ("shared", "grouped", "streamed_shared", "streamed_grouped")
 
 
-def _cycle_bound(S, rows: int, pad: int, nt: int, wh_maxit: int) -> tuple[float, str]:
-    """Least time of one cycle on these operands: the padded-shape FMA work
-    (two (rows, pad) x (pad, pad) products per step) against the FP32 peak,
-    or the bytes read (S, F, G, Ha, mi, tables) and written (u, v) once
-    against the memory rate, whichever is larger."""
-    flop = 2.0 * 2 * wh_maxit * nt * rows * pad * pad
-    nbytes = 4.0 * (S.numel() + 6 * rows * pad + 5 * nt)
-    t_ops, t_bytes = flop / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+def _cycle_flop(form, group_rows: int, nt: int, wh_maxit: int) -> float:
+    """FLOP one cycle needs on the non-zeros of S: two products per step of
+    ``group_rows`` rows by each group's exact non-zeros."""
+    return 2.0 * 2 * wh_maxit * nt * group_rows * float(form.ptr[:, -1].double().sum())
+
+
+def _cycle_bound(form, group_rows: int, rows: int, pad: int, nt: int,
+                 wh_maxit: int) -> tuple[float, str]:
+    """Least time of one cycle on these operands: the FMA work on the
+    non-zeros of S against the FP32 peak, or the bytes read (F, G, Ha, mi,
+    tables, and S's non-zeros with their column offsets and order) and
+    written (u, v) once against the memory rate, whichever is larger."""
+    ng = form.ptr.shape[0]
+    form_bytes = 6.0 * float(form.ptr[:, -1].double().sum()) + ng * (4.0 * (pad + 1) + 2.0 * pad)
+    nbytes = 4.0 * (6 * rows * pad + 5 * nt) + form_bytes
+    t_ops = _cycle_flop(form, group_rows, nt, wh_maxit) / PEAK_FP32_FLOPS
+    t_bytes = nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def _compare(wc, p, F, G, wh_maxit, pad_mask, what, reps=3, streamed=False, **kw):
-    """Kernel vs plain on the same inputs; returns (max abs err, kernel ms,
-    plain ms, kernel (u, v)).  Raises on a relative error >= 2e-4 or
-    non-zero padding.  ``streamed`` forces the streamed kernel; the plain
-    cycle is timed on its checked call, the kernel over ``reps`` launches
-    after its checked one."""
+def _compare(wc, p, F, G, wh_maxit, pad_mask, what, variants, reps=3, form=None, **kw):
+    """Each kernel ``variants`` names against the plain cycle on the same
+    inputs; raises on a relative error >= 2e-4 or non-zero padding.  Returns
+    ({variant: (max abs err, ms)}, plain ms, {variant: (u, v)}).  The plain
+    cycle is timed on its checked call; the kernels after their checked
+    calls, in turns (v0, v1, ..., v1, v0), ``reps`` launches a turn, so
+    each pair is compared on the card's state of the moment.  ``form`` is
+    the sparse kernel's prebuilt sparse form."""
     import torch
 
-    u_k, v_k = wc.wave_cycle(p, F, G, wh_maxit, streamed=streamed, **kw)
+    def run(v):
+        return wc.wave_cycle(p, F, G, wh_maxit, variant=v, sparse=form if v == "sparse" else None,
+                             **kw)
+
+    outs = {v: run(v) for v in variants}
     torch.cuda.synchronize()
     (u_p, v_p), plain_ms = _timed(lambda: wc.wave_cycle_plain(p, F, G, wh_maxit, **kw))
-    err_u, err_v = _rel_max(u_k, u_p), _rel_max(v_k, v_p)
-    abs_err = max(float((u_k - u_p).abs().max()), float((v_k - v_p).abs().max()))
-    if not (np.isfinite([err_u, err_v]).all() and err_u < 2e-4 and err_v < 2e-4):
-        _fail(f"{what}: kernel disagrees with the plain cycle: rel u {err_u:.3e}, v {err_v:.3e}")
-    if bool((u_k[pad_mask] != 0).any()) or bool((v_k[pad_mask] != 0).any()):
-        _fail(f"{what}: kernel wrote non-zero values into padded slots")
+    errs = {}
+    for v, (u_k, v_k) in outs.items():
+        err_u, err_v = _rel_max(u_k, u_p), _rel_max(v_k, v_p)
+        errs[v] = max(float((u_k - u_p).abs().max()), float((v_k - v_p).abs().max()))
+        if not (np.isfinite([err_u, err_v]).all() and err_u < 2e-4 and err_v < 2e-4):
+            _fail(f"{what}: {v} kernel disagrees with the plain cycle: rel u {err_u:.3e}, "
+                  f"v {err_v:.3e}")
+        if bool((u_k[pad_mask] != 0).any()) or bool((v_k[pad_mask] != 0).any()):
+            _fail(f"{what}: {v} kernel wrote non-zero values into padded slots")
+        print(f"{what}: {v} rel err u {err_u:.3e} v {err_v:.3e}, max abs err {errs[v]:.3e}")
     del u_p, v_p
-    ms = _cuda_ms(lambda: wc.wave_cycle(p, F, G, wh_maxit, streamed=streamed, **kw), reps)
-    print(f"{what}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms per cycle; "
-          f"rel err u {err_u:.3e} v {err_v:.3e}, max abs err {abs_err:.3e}")
-    return abs_err, ms, plain_ms, (u_k, v_k)
+    times = {v: [] for v in variants}
+    for v in [*variants, *reversed(variants)]:
+        times[v].append(_timed(lambda: run(v), reps)[1])
+    res = {v: (errs[v], sum(t) / len(t)) for v, t in times.items()}
+    print(f"{what}: plain {plain_ms:.3f} ms; " + "; ".join(
+        f"{v} {ms:.3f} ms (turns {', '.join(f'{t:.3f}' for t in times[v])})"
+        for v, (_, ms) in res.items()))
+    return res, plain_ms, outs
+
+
+def _form_ms(wc, S):
+    """(sparse form of S, CUDA-event ms of its build after one untimed build,
+    which pays the first use of the torch ops)."""
+    wc.sparse_form(S)
+    return _timed(lambda: wc.sparse_form(S))
+
+
+def _nnz(form) -> int:
+    """The largest nnz over the form's groups."""
+    return int(form.ptr[:, -1].max())
+
+
+def _rates(what, flop_sparse, rows, pad, nt, wh_maxit, res, bound, by):
+    """Print sparse and dense-equivalent TFLOP/s of each kernel."""
+    flop_dense = 2.0 * 2 * wh_maxit * nt * rows * pad * pad
+    print(f"{what}: bound {bound:.3f} ms ({by}); {flop_sparse:.3e} FLOP on the non-zeros, "
+          f"{flop_dense:.3e} on the dense shape; " + "; ".join(
+              f"{v} {flop_sparse / ms / 1e9:.2f} TFLOP/s sparse, "
+              f"{flop_dense / ms / 1e9:.2f} dense-equivalent"
+              for v, (_, ms) in res.items()))
+
+
+def _only_sparse(launches, key, what):
+    if launches[f"sparse_{key}"] == 0 or any(launches[k] for k in DENSE):
+        _fail(f"{what}: want sparse layout-({'a' if key == 'shared' else 'b'}) launches and "
+              f"no dense ones, got {launches}")
 
 
 def _masked_normal(rng, mask, dev):
@@ -255,7 +307,7 @@ def main() -> int:
     for path in lib_paths.values():
         print(path.with_suffix(".log").read_text().strip())
 
-    # --- 2. kernel vs plain at the flagship shape -------------------------------
+    # --- 2. kernels vs plain at the flagship shape ------------------------------
     nx, deg = cfg.nx, cfg.deg
     omega = cfg.omega
     fem = H1Space(Mesh2D.uniform_rect(nx, -1.0, 1.0, nx, -1.0, 1.0), Basis(deg + 1))
@@ -272,17 +324,28 @@ def main() -> int:
         _fail("flagship stiffness is not shared")
     if float((p.S - p.S.T).abs().max()) > 1e-6 * float(p.S.abs().max()):
         _fail("flagship stiffness is not symmetric")
+    form_a, form_ms_a = _form_ms(wc, p.S)
+    nnz_a = _nnz(form_a)
+    print(f"flagship sparse form: nnz {nnz_a} (dense {ddh.pad ** 2}), stride {form_a.stride}, "
+          f"built in {form_ms_a:.3f} ms")
     rng = np.random.default_rng(0)
     gmask = ddh.gmask.cpu().numpy()
     F = torch.from_numpy((rng.standard_normal(gmask.shape) * gmask).astype(np.float32)).to(dev)
     G = torch.from_numpy((rng.standard_normal(gmask.shape) * gmask).astype(np.float32)).to(dev)
 
-    abs_err, ms, plain_ms, uv_res = _compare(wc, p, F, G, ddh.wh_maxit, ddh.gmask == 0,
-                                             "wave cycle (a), flagship")
-    flop = 2 * 2 * ddh.wh_maxit * ddh.nt * ddh.n_domains * ddh.pad**2
-    bound_a, by_a = _cycle_bound(p.S, ddh.n_domains, ddh.pad, ddh.nt, ddh.wh_maxit)
-    print(f"wave cycle (a): {flop / ms / 1e9:.1f} TFLOP/s on padded shapes ({flop:.3e} FLOP), "
-          f"bound {bound_a:.3f} ms ({by_a})")
+    res_a, plain_ms, uv_a = _compare(wc, p, F, G, ddh.wh_maxit, ddh.gmask == 0,
+                                     "wave cycle (a), flagship", ("sparse", "resident"),
+                                     form=form_a)
+    bound_a, by_a = _cycle_bound(form_a, ddh.n_domains, ddh.n_domains, ddh.pad, ddh.nt,
+                                 ddh.wh_maxit)
+    _rates("wave cycle (a), flagship", _cycle_flop(form_a, ddh.n_domains, ddh.nt, ddh.wh_maxit),
+           ddh.n_domains, ddh.pad, ddh.nt, ddh.wh_maxit, res_a, bound_a, by_a)
+    shapes = {"sparse_shared": [], "sparse_grouped": []}
+    shapes["sparse_shared"].append({
+        "at": f"flagship, {ddh.n_domains} rows, pad {ddh.pad}, nt {ddh.nt}", "nnz": nnz_a,
+        "stride": form_a.stride, "form_ms": form_ms_a, "ms": res_a["sparse"][1], "dense_ms": res_a["resident"][1],
+        "dense": "resident", "plain_ms": plain_ms, "bound_ms": bound_a, "bound_by": by_a,
+    })
 
     # --- 3. the flagship solve, direct path ------------------------------------
     wc.reset_launches()
@@ -293,16 +356,17 @@ def main() -> int:
     print(f"flagship solve: success={res.success} restarts={res.num_iter} "
           f"matvecs={res.num_matvec} launches={launches} solve {res.seconds:.3f} s "
           f"({1e3 * res.seconds / (res.num_matvec + 2):.3f} ms per cycle incl. GMRES) "
-          f"setup {res.extra['setup_seconds']:.2f} s; residual history "
+          f"setup {res.extra['setup_seconds']:.2f} s (sparse form "
+          f"{1e3 * res.extra['ddh'].sparse_seconds:.3f} ms); residual history "
           f"{res.res_norm[0]:.6e} -> {res.res_norm[-1]:.6e} "
           f"(rel {res.res_norm[-1] / res.res_norm[0]:.3e})")
     if not res.success:
         _fail("flagship solve did not converge")
     if res.num_iter > 20:
         _fail(f"flagship solve took {res.num_iter} restarts (> 20)")
-    if launches != {**dict.fromkeys(launches, 0), "shared": res.num_matvec + 2}:
+    if launches != {**dict.fromkeys(launches, 0), "sparse_shared": res.num_matvec + 2}:
         _fail(f"kernel launches {launches}: want num_matvec + 2 = {res.num_matvec + 2} "
-              "resident layout-(a) launches and no other")
+              "sparse layout-(a) launches and no other")
     U = res.solution
     if U.shape != (2 * res.extra["ndof"],) or not np.isfinite(U).all():
         _fail(f"solution has shape {U.shape} or non-finite values")
@@ -334,22 +398,38 @@ def main() -> int:
     ui = torch.as_tensor(uidx, device=dev)
     gp = up._replace(S=up.S[ui].contiguous(), Ha=up.Ha[ui].repeat_interleave(c, 0),
                      inv_mi=up.inv_mi[ui].repeat_interleave(c, 0))
+    form_b, form_ms_b = _form_ms(wc, gp.S)
     gmask = uddh.gmask[ui].repeat_interleave(c, 0)
     gm = gmask.cpu().numpy()
     Fb, Gb = _masked_normal(rng, gm, dev), _masked_normal(rng, gm, dev)
-    abs_err_b, ms_b, plain_ms_b, _ = _compare(
-        wc, gp, Fb, Gb, uddh.wh_maxit, gmask == 0,
-        f"wave cycle (b), {nu * c} rows in runs of {c}", s_group_size=c)
-    bound_b, by_b = _cycle_bound(gp.S, nu * c, uddh.pad, uddh.nt, uddh.wh_maxit)
-    print(f"wave cycle (b): bound {bound_b:.3f} ms ({by_b})")
+    what = f"wave cycle (b), {nu * c} rows in runs of {c}"
+    res_b, plain_ms_b, _ = _compare(wc, gp, Fb, Gb, uddh.wh_maxit, gmask == 0, what,
+                                    ("sparse", "resident"), form=form_b, s_group_size=c)
+    bound_b, by_b = _cycle_bound(form_b, c, nu * c, uddh.pad, uddh.nt, uddh.wh_maxit)
+    _rates(what, _cycle_flop(form_b, c, uddh.nt, uddh.wh_maxit), nu * c, uddh.pad, uddh.nt,
+           uddh.wh_maxit, res_b, bound_b, by_b)
+    shapes["sparse_grouped"].append({
+        "at": f"unstructured transfer probe, {nu} runs of {c} rows, pad {uddh.pad}, "
+              f"nt {uddh.nt}", "nnz": _nnz(form_b),
+        "stride": form_b.stride, "form_ms": form_ms_b,
+        "ms": res_b["sparse"][1], "dense_ms": res_b["resident"][1], "dense": "resident",
+        "plain_ms": plain_ms_b, "bound_ms": bound_b, "bound_by": by_b,
+    })
     um = uddh.gmask.cpu().numpy()
     Fc, Gc = _masked_normal(rng, um, dev), _masked_normal(rng, um, dev)
-    abs_err_c, ms_c, plain_ms_c, _ = _compare(
-        wc, up, Fc, Gc, uddh.wh_maxit, uddh.gmask == 0,
-        f"wave cycle (c), {uddh.n_domains} rows tiled x{wc.ROWS_PER_BLOCK}")
-    bound_c, by_c = _cycle_bound(up.S, uddh.n_domains, uddh.pad, uddh.nt, uddh.wh_maxit)
-    print(f"wave cycle (c): bound {bound_c:.3f} ms ({by_c}) for the {uddh.n_domains} rows "
-          f"it computes")
+    what = f"wave cycle (c), {uddh.n_domains} rows tiled x{wc.ROWS_PER_BLOCK}"
+    res_c, plain_ms_c, _ = _compare(wc, up, Fc, Gc, uddh.wh_maxit, uddh.gmask == 0, what,
+                                    ("sparse", "resident"), form=uddh.S_sparse)
+    bound_c, by_c = _cycle_bound(uddh.S_sparse, 1, uddh.n_domains, uddh.pad, uddh.nt,
+                                 uddh.wh_maxit)
+    print(f"{what}: bound {bound_c:.3f} ms ({by_c}) for the {uddh.n_domains} rows it computes")
+    shapes["sparse_grouped"].append({
+        "at": f"unstructured per-row (c), {uddh.n_domains} rows tiled x{wc.ROWS_PER_BLOCK}",
+        "nnz": _nnz(uddh.S_sparse), "stride": uddh.S_sparse.stride,
+        "form_ms": 1e3 * uddh.sparse_seconds,
+        "ms": res_c["sparse"][1], "dense_ms": res_c["resident"][1], "dense": "resident",
+        "plain_ms": plain_ms_c, "bound_ms": bound_c, "bound_by": by_c,
+    })
     del uddh, gp, Fb, Gb
 
     # --- 5. the flagship transfer solve ----------------------------------------
@@ -359,8 +439,7 @@ def main() -> int:
                             block_size=cfg.block_size, transfer=True, device=dev),
         "flagship transfer solve", max_restarts=20, jax_matvecs=366,
         matvec_slack=cfg.gmres.m + 1, gm=cfg.gmres)
-    if launches["shared"] == 0:
-        _fail("flagship transfer path launched no layout-(a) kernel")
+    _only_sparse(launches, "shared", "flagship transfer path")
     for k in total:
         total[k] += launches[k]
     del res5
@@ -370,13 +449,12 @@ def main() -> int:
         wc, lambda: run_config(ucfg, device=dev), "unstructured transfer solve",
         max_restarts=100, jax_matvecs=668, matvec_slack=2 * (ucfg.gmres.m + 1),
         gm=ucfg.gmres)
-    if launches["grouped"] == 0:
-        _fail("unstructured transfer path launched no layout-(b) kernel")
+    _only_sparse(launches, "grouped", "unstructured transfer path")
     for k in total:
         total[k] += launches[k]
     del res6
 
-    # --- 7. ddh_512_block32, transfer path: probes run the streamed kernel --
+    # --- 7. ddh_512_block32, transfer path: probes run the sparse kernel ------
     res7, launches = _transfer_run(
         wc, lambda: run_config(bcfg, device=dev), "ddh_512_block32 transfer solve",
         max_restarts=bcfg.gmres.maxit, jax_matvecs=522, matvec_slack=bcfg.gmres.m + 1,
@@ -385,33 +463,37 @@ def main() -> int:
     if (bddh.pad, bddh.shared_S, bddh.n_domains) != (632, True, 4096):
         _fail(f"ddh_512_block32: pad {bddh.pad}, shared_S {bddh.shared_S}, "
               f"{bddh.n_domains} domains; want 632, True, 4096")
-    if launches["streamed_shared"] == 0 or launches["shared"] != 0:
-        _fail(f"ddh_512_block32 probes did not run the streamed layout-(a) kernel: {launches}")
+    _only_sparse(launches, "shared", "ddh_512_block32 probes")
     for k in total:
         total[k] += launches[k]
 
-    # --- 8. streamed layout (a) vs plain on its transfer-probe rows -----------
+    # --- 8. sparse and streamed layout (a) vs plain on its transfer-probe rows
     uidx, _, nu = bddh._domain_groups()
     c = 2 * bddh._fslot_np.shape[1]
     ui = torch.as_tensor(uidx, device=dev)
     bp = bddh.params
     pa = bp._replace(Ha=bp.Ha[ui].repeat(c, 1), inv_mi=bp.inv_mi[ui].repeat(c, 1))
+    form_sa, form_ms_sa = _form_ms(wc, pa.S)
     amask = bddh.gmask[ui].repeat(c, 1)
     am = amask.cpu().numpy()
     Fa, Ga = _masked_normal(rng, am, dev), _masked_normal(rng, am, dev)
-    abs_err_sa, ms_sa, plain_ms_sa, _ = _compare(
-        wc, pa, Fa, Ga, bddh.wh_maxit, amask == 0,
-        f"streamed (a), ddh_512_block32 transfer probe ({nu} x {c} rows, pad {bddh.pad})",
-        reps=1)
     rows_sa, pad_sa, nt_sa = nu * c, bddh.pad, bddh.nt
-    flop_sa = 2 * 2 * bddh.wh_maxit * nt_sa * rows_sa * pad_sa**2
-    bound_sa, by_sa = _cycle_bound(pa.S, rows_sa, pad_sa, nt_sa, bddh.wh_maxit)
-    print(f"streamed (a): {flop_sa / ms_sa / 1e9:.2f} TFLOP/s on padded shapes "
-          f"({flop_sa:.3e} FLOP), bound {bound_sa:.3f} ms ({by_sa})")
+    what = f"layout (a), ddh_512_block32 transfer probe ({nu} x {c} rows, pad {pad_sa})"
+    res_sa, plain_ms_sa, _ = _compare(wc, pa, Fa, Ga, bddh.wh_maxit, amask == 0, what,
+                                      ("sparse", "streamed"), reps=1, form=form_sa)
+    bound_sa, by_sa = _cycle_bound(form_sa, rows_sa, rows_sa, pad_sa, nt_sa, bddh.wh_maxit)
+    _rates(what, _cycle_flop(form_sa, rows_sa, nt_sa, bddh.wh_maxit), rows_sa, pad_sa, nt_sa,
+           bddh.wh_maxit, res_sa, bound_sa, by_sa)
+    shapes["sparse_shared"].append({
+        "at": f"ddh_512_block32 transfer probe, {rows_sa} rows, pad {pad_sa}, nt {nt_sa}",
+        "nnz": _nnz(form_sa), "stride": form_sa.stride, "form_ms": form_ms_sa, "ms": res_sa["sparse"][1],
+        "dense_ms": res_sa["streamed"][1], "dense": "streamed", "plain_ms": plain_ms_sa,
+        "bound_ms": bound_sa, "bound_by": by_sa,
+    })
     del res7, bddh, bp, pa, Fa, Ga, amask
     torch.cuda.empty_cache()
 
-    # --- 9. large_unstructured L3, 256 domains: grouped streamed probes -------
+    # --- 9. large_unstructured L3, 256 domains: grouped sparse probes ---------
     lmesh = refine_quad_mesh(load_unstructured_square(), 3)
     lomega = 2 * np.pi / (5.0 * lu.median_h(lmesh))
     res9, launches = _transfer_run(
@@ -426,61 +508,83 @@ def main() -> int:
             320, False, 256, "grouped"):
         _fail(f"L3: pad {lddh.pad}, shared_S {lddh.shared_S}, nu {pre['transfer_nu']}, "
               f"layout {pre['transfer_layout']}; want 320, False, 256, grouped")
-    if launches["streamed_grouped"] == 0 or launches["grouped"] != 0:
-        _fail(f"L3 probes did not run the streamed layout-(b) kernel: {launches}")
+    _only_sparse(launches, "grouped", "L3 probes")
     for k in total:
         total[k] += launches[k]
 
-    # --- 10. streamed layout (b) vs plain on its transfer-probe rows ----------
+    # --- 10. sparse and streamed layout (b) vs plain on its transfer-probe rows
     uidx, _, nu = lddh._domain_groups()
     c = 2 * lddh._fslot_np.shape[1]
     ui = torch.as_tensor(uidx, device=dev)
     lp = lddh.params
     pb = lp._replace(S=lp.S[ui].contiguous(), Ha=lp.Ha[ui].repeat_interleave(c, 0),
                      inv_mi=lp.inv_mi[ui].repeat_interleave(c, 0))
+    form_sb, form_ms_sb = _form_ms(wc, pb.S)
     bmask = lddh.gmask[ui].repeat_interleave(c, 0)
     bm = bmask.cpu().numpy()
     Fb, Gb = _masked_normal(rng, bm, dev), _masked_normal(rng, bm, dev)
-    abs_err_sb, ms_sb, plain_ms_sb, _ = _compare(
-        wc, pb, Fb, Gb, lddh.wh_maxit, bmask == 0,
-        f"streamed (b), L3 transfer probe ({nu} runs of {c} rows, pad {lddh.pad})",
-        reps=1, s_group_size=c)
     rows_sb, pad_sb, nt_sb = nu * c, lddh.pad, lddh.nt
-    flop_sb = 2 * 2 * lddh.wh_maxit * nt_sb * rows_sb * pad_sb**2
-    bound_sb, by_sb = _cycle_bound(pb.S, rows_sb, pad_sb, nt_sb, lddh.wh_maxit)
-    print(f"streamed (b): {flop_sb / ms_sb / 1e9:.2f} TFLOP/s on padded shapes "
-          f"({flop_sb:.3e} FLOP), bound {bound_sb:.3f} ms ({by_sb})")
+    what = f"layout (b), L3 transfer probe ({nu} runs of {c} rows, pad {pad_sb})"
+    res_sb, plain_ms_sb, _ = _compare(wc, pb, Fb, Gb, lddh.wh_maxit, bmask == 0, what,
+                                      ("sparse", "streamed"), reps=1, form=form_sb,
+                                      s_group_size=c)
+    bound_sb, by_sb = _cycle_bound(form_sb, c, rows_sb, pad_sb, nt_sb, lddh.wh_maxit)
+    _rates(what, _cycle_flop(form_sb, c, nt_sb, lddh.wh_maxit), rows_sb, pad_sb, nt_sb,
+           lddh.wh_maxit, res_sb, bound_sb, by_sb)
+    shapes["sparse_grouped"].append({
+        "at": f"L3 transfer probe, {nu} runs of {c} rows, pad {pad_sb}, nt {nt_sb}",
+        "nnz": _nnz(form_sb), "stride": form_sb.stride, "form_ms": form_ms_sb, "ms": res_sb["sparse"][1],
+        "dense_ms": res_sb["streamed"][1], "dense": "streamed", "plain_ms": plain_ms_sb,
+        "bound_ms": bound_sb, "bound_by": by_sb,
+    })
     del res9, lddh, lp, pb, Fb, Gb, bmask
     torch.cuda.empty_cache()
 
-    # --- 11. streamed against resident at the flagship shape (pad 176) --------
-    abs_err_s176, ms_s176, _, (u_s, v_s) = _compare(
-        wc, p, F, G, ddh.wh_maxit, ddh.gmask == 0, "streamed (a) forced, flagship", streamed=True)
-    err_sr = max(_rel_max(u_s, uv_res[0]), _rel_max(v_s, uv_res[1]))
-    print(f"streamed vs resident at pad {ddh.pad}: rel err {err_sr:.3e} "
-          f"(resident {ms:.3f} ms, streamed {ms_s176:.3f} ms per cycle)")
-    if not err_sr < 2e-4:
-        _fail(f"streamed and resident kernels disagree at pad {ddh.pad}: {err_sr:.3e}")
+    # --- 11. streamed against resident and sparse at the flagship shape -------
+    res_s176, _, uv_s = _compare(wc, p, F, G, ddh.wh_maxit, ddh.gmask == 0,
+                                 "streamed (a) forced, flagship", ("sparse", "streamed"),
+                                 form=form_a)
+    u_s, v_s = uv_s["streamed"]
+    for v in ("resident", "sparse"):
+        err = max(_rel_max(u_s, uv_a[v][0]), _rel_max(v_s, uv_a[v][1]))
+        print(f"streamed vs {v} at pad {ddh.pad}: rel err {err:.3e}")
+        if not err < 2e-4:
+            _fail(f"streamed and {v} kernels disagree at pad {ddh.pad}: {err:.3e}")
     print(f"kernel launches over the main-path runs: {total}")
+    for row in (r for rows in shapes.values() for r in rows):
+        print(f"sparse kernel at {row['at']}: {row['ms']:.3f} ms against {row['dense']} "
+              f"{row['dense_ms']:.3f} ms ({row['dense_ms'] / row['ms']:.2f}x), bound "
+              f"{row['bound_ms']:.3f} ms ({row['bound_by']}, {row['bound_ms'] / row['ms']:.1%}"
+              f" of it), nnz {row['nnz']} (stride {row['stride']}), form {row['form_ms']:.3f} ms")
 
-    def entry(name, source, line, key, err, kms, pms, bound, by):
+    def entry(name, source, line, key, err, kms, pms, bound, by, **extra):
         return {
             "name": name, "route": "cuda", "source": f"cuddhelmholtz_tpu_torch/csrc/{source}",
             "replaces": f"cuddhelmholtz_tpu/ops/pallas/wave_cycle.py:{line}",
             "launches": total[key], "max_abs_err": err, "ms": kms, "plain_ms": pms,
-            "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "bound_ms": bound, "bound_by": by, "library_ms": None, **extra,
         }
 
     print(json.dumps({"kernels": [
-        entry("wave_cycle (a) shared S", "wave_cycle.cu", 69, "shared", abs_err, ms, plain_ms,
-              bound_a, by_a),
+        entry("wave_cycle sparse (a) shared S", "wave_cycle_sparse.cu", 69, "sparse_shared",
+              max(res_a["sparse"][0], res_sa["sparse"][0], res_s176["sparse"][0]),
+              res_a["sparse"][1], plain_ms, bound_a, by_a, nnz=nnz_a, stride=form_a.stride, form_ms=form_ms_a,
+              shapes=shapes["sparse_shared"]),
+        entry("wave_cycle sparse (b) grouped S", "wave_cycle_sparse.cu", 201, "sparse_grouped",
+              max(res_b["sparse"][0], res_c["sparse"][0], res_sb["sparse"][0]),
+              res_sb["sparse"][1], plain_ms_sb, bound_sb, by_sb, nnz=_nnz(form_sb),
+              stride=form_sb.stride, form_ms=form_ms_sb, shapes=shapes["sparse_grouped"]),
+        entry("wave_cycle (a) shared S", "wave_cycle.cu", 69, "shared", res_a["resident"][0],
+              res_a["resident"][1], plain_ms, bound_a, by_a),
         entry("wave_cycle (b) grouped S", "wave_cycle.cu", 201, "grouped",
-              max(abs_err_b, abs_err_c), ms_b, plain_ms_b, bound_b, by_b),
+              max(res_b["resident"][0], res_c["resident"][0]), res_b["resident"][1],
+              plain_ms_b, bound_b, by_b),
         entry("wave_cycle streamed (a) shared S", "wave_cycle_streamed.cu", 69,
-              "streamed_shared", max(abs_err_sa, abs_err_s176), ms_sa, plain_ms_sa,
-              bound_sa, by_sa),
+              "streamed_shared", max(res_sa["streamed"][0], res_s176["streamed"][0]),
+              res_sa["streamed"][1], plain_ms_sa, bound_sa, by_sa),
         entry("wave_cycle streamed (b) grouped S", "wave_cycle_streamed.cu", 201,
-              "streamed_grouped", abs_err_sb, ms_sb, plain_ms_sb, bound_sb, by_sb),
+              "streamed_grouped", res_sb["streamed"][0], res_sb["streamed"][1], plain_ms_sb,
+              bound_sb, by_sb),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

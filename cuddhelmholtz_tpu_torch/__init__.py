@@ -7,9 +7,10 @@ counterpart is easy to find:
   mesh/       Mesh2D geometry + metric caches, mesh files, refinement
   spaces/     H1Space, EnsembleSpace (subdomain tables, ``cmap``)
   ops/        lumped mass, collocation functional; ops/cuda: the Hopper
-              WaveHoltz kernels (``csrc/wave_cycle.cu``, S resident in shared
-              memory; ``csrc/wave_cycle_streamed.cu``, S streamed) and their
-              plain version
+              WaveHoltz kernels (``csrc/wave_cycle_sparse.cu``, S's non-zeros
+              in shared memory, the default; the dense ``csrc/wave_cycle.cu``,
+              S resident, and ``csrc/wave_cycle_streamed.cu``, S streamed)
+              and their plain version
   models/     Helmholtz forcing
   solvers/    GMRES(m), the DDH preconditioner (direct and transfer/io paths)
   examples/   ``run_ddh``, ``run_config``, ``large_unstructured``, ``profile_solve``

@@ -56,8 +56,9 @@ DDH_UNSTRUCTURED_SQUARE = ProblemConfig(
 )
 
 # 2.4M DOFs at 4x the reference frequency with 32-DOF subdomain blocks
-# (4,096 subdomains of 625 DOFs, pad 632): the stiffness exceeds a block's
-# shared memory, so its probes run the streamed kernel
+# (4,096 subdomains of 625 DOFs, pad 632): the dense stiffness (1.6 MB)
+# exceeds a block's shared memory, its non-zeros (58 KB) do not, so its
+# probes run the sparse kernel
 DDH_512_BLOCK32 = ProblemConfig(
     name="ddh_512_block32",
     nx=512,  # omega = 2*pi*51.2

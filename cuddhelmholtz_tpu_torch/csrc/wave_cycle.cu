@@ -50,9 +50,11 @@
 // the extra device-memory traffic is one S per block (124 KB against ~5e8
 // FLOP of block work at pad 176, nt 800).
 // S must fit in shared memory beside the row state (pad up to 224 on an
-// H100); larger pads run csrc/wave_cycle_streamed.cu, which streams S
-// through shared memory.  The kernel runs at about a third of the FP32 FMA
-// peak.
+// H100); csrc/wave_cycle_streamed.cu streams larger ones through shared
+// memory.  The kernel runs at about a third of the FP32 FMA peak on the
+// dense product; csrc/wave_cycle_sparse.cu, which applies only the
+// non-zeros of S, runs by default wherever they fit, and this kernel when
+// forced.
 
 #include <cuda_runtime.h>
 

@@ -45,8 +45,9 @@
 // rows, 8 FLOP per byte.  At the 67 TFLOP/s FP32 peak that needs 8.4 TB/s
 // from L2, above what the H100's L2 delivers, so L2 bandwidth and latency
 // bound the kernel before the FMA rate does.  The dense product also does
-// about 15-25 times the work of a per-element stiffness apply (S has at most
-// 49 non-zeros per row at pad 632); the sparse apply is later work.
+// 14-45 times the work the non-zeros of S need (at most 31 per column at
+// pad 632): csrc/wave_cycle_sparse.cu applies those, and runs by default
+// wherever they fit in shared memory; this kernel runs when forced.
 // Shared memory: 4 (16 + 8 + 24) pad bytes, 121 KB at pad 632; pad <= 1024.
 
 #include <cuda_runtime.h>

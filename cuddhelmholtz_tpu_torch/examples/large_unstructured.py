@@ -7,7 +7,7 @@ elements per level, irregular topology kept), pick omega for
 resolution), partition by median coordinate bisection and run the
 transfer-path lambda-solve to ``tol``; optionally repeat on a matched
 jittered-grid control.  At ``--levels 3 --domains 256`` every subdomain has
-its own stiffness at pad 320, so the probes run the streamed kernel in the
+its own stiffness at pad 320, so the probes run the sparse kernel in the
 grouped layout.
 
 The JAX example's two-level coarse space (``--coarse``) and composite 1e-6

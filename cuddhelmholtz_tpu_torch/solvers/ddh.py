@@ -24,9 +24,10 @@ coarse space are not ported yet.
 
 The port pads a subdomain to a multiple of ``PAD_MULTIPLE`` = 8 DOFs (169 ->
 176 at the flagship, 625 -> 632 with 32-DOF blocks) instead of the JAX
-package's 128, so the flagship's fp32 stiffness (124 KB) stays resident in
-one SM's shared memory; larger ones are streamed through it (the wave-cycle
-wrapper picks the kernel by pad).
+package's 128.  On the card the operator builds the exact non-zeros of its
+S once (``S_sparse``) and hands them to every wave cycle; the wave-cycle
+wrapper runs the sparse kernel with them in shared memory wherever they
+fit.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.cuda.wave_cycle import ROWS_PER_BLOCK, WH_MAXIT, wave_cycle
+from ..ops.cuda.wave_cycle import ROWS_PER_BLOCK, WH_MAXIT, SparseS, sparse_form, wave_cycle
 from ..ops.mass import lumped_mass_diagonal
 from ..spaces.ensemble import EnsembleSpace, structured_labels
 from ..spaces.h1 import H1Space
@@ -468,6 +469,8 @@ class DDH(nn.Module):
         }
         for name, t in _to_device(host, device).items():
             self.register_buffer(name, t)
+        self._S_sparse: SparseS | None = None
+        self.sparse_seconds: float | None = None  # build time of S_sparse
         self.K0 = _f32(filt[0])
         self.dt32 = _f32(dt)
         self.omega32 = _f32(omega)
@@ -480,6 +483,18 @@ class DDH(nn.Module):
             dt=self.dt32,
             omega=self.omega32,
         )
+
+    @property
+    def S_sparse(self) -> SparseS:
+        """The exact non-zeros of S (``sparse_form``), the form the sparse
+        kernel reads: built on first use and kept for every later cycle on
+        this operator."""
+        if self._S_sparse is None:
+            t0 = time.perf_counter()
+            self._S_sparse = sparse_form(self.S)
+            _sync(self.S.device)
+            self.sparse_seconds = time.perf_counter() - t0
+        return self._S_sparse
 
     @property
     def size(self) -> int:
@@ -503,21 +518,29 @@ class DDH(nn.Module):
             return ddh_action_transfer_rolled(self.params, self.route, lam, self.n_own)
         if self.use_transfer:
             return ddh_action_transfer(self.params, self.T, lam, self.n_own)
-        return ddh_action(self.params, lam, n_own=self.n_own, wh_maxit=self.wh_maxit)
+        return ddh_action(self.params, lam, n_own=self.n_own, wh_maxit=self.wh_maxit,
+                          cycle=self._cycle)
 
     def rhs(self, f: torch.Tensor) -> torch.Tensor:
         """Substructured rhs from the Helmholtz forcing."""
         if self.use_transfer and self.io is not None:
             return ddh_rhs_io(self.params, self.io, f, self.g_ndof, self.n_lambda)
-        return ddh_rhs(self.params, f, self.g_ndof, self.n_lambda, wh_maxit=self.wh_maxit)
+        return ddh_rhs(self.params, f, self.g_ndof, self.n_lambda, wh_maxit=self.wh_maxit,
+                       cycle=self._cycle)
 
     def postprocess(self, lam: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
         """Recover the [u; v] solution."""
         if self.use_transfer and self.io is not None:
             return ddh_postprocess_io(self.params, self.io, lam, f, self.g_ndof, self.n_own)
         return ddh_postprocess(
-            self.params, lam, f, self.g_ndof, n_own=self.n_own, wh_maxit=self.wh_maxit
+            self.params, lam, f, self.g_ndof, n_own=self.n_own, wh_maxit=self.wh_maxit,
+            cycle=self._cycle,
         )
+
+    def _cycle(self, params: DDHParams, F, G, wh_maxit: int):
+        """The wave cycle on this operator's S; on the card with its sparse
+        form (the CPU runs the plain cycle, which does not read it)."""
+        return wave_cycle(params, F, G, wh_maxit, sparse=self.S_sparse if F.is_cuda else None)
 
     # ------------------------------------------------------ transfer / io
 
@@ -561,6 +584,9 @@ class DDH(nn.Module):
         Ha_u, mi_u = self.Ha[ui], self.inv_mi[ui]
         grouped = p.S.dim() == 3
         S_u = p.S[ui].contiguous() if grouped else p.S
+        sparse_u = None
+        if dev.type == "cuda":
+            sparse_u = self.S_sparse.take(ui) if grouped else self.S_sparse
         chunk = max(1, min(ncols, PROBE_STATE_ELEMS // (nu * pad)))
         if grouped:
             chunk = max(ROWS_PER_BLOCK, chunk // ROWS_PER_BLOCK * ROWS_PER_BLOCK)
@@ -578,7 +604,8 @@ class DDH(nn.Module):
                     S=S_u, Ha=Ha_u.repeat_interleave(c8, dim=0),
                     inv_mi=mi_u.repeat_interleave(c8, dim=0),
                 )
-                u, v = wave_cycle(pc, fg[0], fg[1], self.wh_maxit, s_group_size=c8)
+                u, v = wave_cycle(pc, fg[0], fg[1], self.wh_maxit, s_group_size=c8,
+                                  sparse=sparse_u)
                 u = u.reshape(nu, c8, pad)[:, :c].transpose(0, 1)
                 v = v.reshape(nu, c8, pad)[:, :c].transpose(0, 1)
             else:
@@ -586,7 +613,7 @@ class DDH(nn.Module):
                 fg = fg.reshape(2, c * nu, pad)
                 pc = p._replace(Ha=Ha_u.repeat(c, 1), inv_mi=mi_u.repeat(c, 1))
                 rows += nu * c
-                u, v = wave_cycle(pc, fg[0], fg[1], self.wh_maxit)
+                u, v = wave_cycle(pc, fg[0], fg[1], self.wh_maxit, sparse=sparse_u)
                 u, v = u.reshape(c, nu, pad), v.reshape(c, nu, pad)
             us.append(u)
             vs.append(v / p.omega)

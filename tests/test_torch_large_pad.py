@@ -21,9 +21,9 @@ Tolerances: the cycle 2e-4 relative to the max (as
 ``test_torch_ddh.py``); solves the same restart and matvec counts, histories
 to rtol 2e-3 and solutions to 1e-3 (as ``test_torch_transfer.py``).
 
-The tests marked ``cuda`` hold the streamed kernel to the plain cycle in both
-layouts and to the resident kernel at pad 176; they skip where there is no
-GPU.  On a machine without JAX run
+The tests marked ``cuda`` hold the streamed kernel, forced, to the plain cycle
+in both layouts and to the resident kernel at pad 176; they skip where there
+is no GPU.  On a machine without JAX run
 ``python -m pytest --noconftest tests/test_torch_large_pad.py -m cuda``.
 """
 
@@ -122,6 +122,33 @@ def test_plain_cycle_at_pad_632_matches_xla_scan(pair632):
     assert _rel_max(v, np.asarray(v_x)[:, :632]) < CYCLE_TOL
     # the port's own setup gives the same cycle data as the JAX package's
     assert _rel_max(ddh.S, port.S) < 1e-6 and torch.equal(ddh.gI, port.gI)
+
+
+def test_sparse_plain_cycle_at_pad_632_matches_xla_scan(pair632):
+    """The plain cycle through the sparse form of the pad-632 S equals the
+    dense plain cycle and the JAX scan in float64 (the sums differ only in
+    order: 1e-12)."""
+    import jax.numpy as jnp
+    from cuddhelmholtz_tpu.solvers.ddh import _wave_cycle_xla
+
+    jddh, ddh, _, _ = pair632
+    arrays = {k: np.asarray(v) for k, v in jddh.params._asdict().items()}
+    fields = ("S", "Ha", "inv_mi", "tables")
+    port = ddh_params_from_jax(arrays, ddh.pad, "cpu")
+    port = port._replace(**{k: getattr(port, k).double() for k in fields})
+    rng = np.random.default_rng(1)
+    F = rng.standard_normal(arrays["gmask"].shape) * arrays["gmask"]
+    G = rng.standard_normal(arrays["gmask"].shape) * arrays["gmask"]
+    form = wc.sparse_form(port.S)
+    assert int(form.ptr[0, -1]) == int((port.S != 0).sum()) <= form.stride
+    Ft, Gt = torch.from_numpy(F[:, :632]), torch.from_numpy(G[:, :632])
+    u, v = wc.wave_cycle_plain(port, Ft, Gt, 1, sparse=form)
+    u0, v0 = wc.wave_cycle_plain(port, Ft, Gt, 1)
+    assert _rel_max(u, u0) < 1e-12 and _rel_max(v, v0) < 1e-12
+    jp = jddh.params._replace(**{k: jnp.asarray(arrays[k], jnp.float64) for k in fields})
+    u_x, v_x = _wave_cycle_xla(jp, jnp.asarray(F), jnp.asarray(G), 1, precision="highest")
+    assert _rel_max(u, np.asarray(u_x)[:, :632]) < 1e-12
+    assert _rel_max(v, np.asarray(v_x)[:, :632]) < 1e-12
 
 
 @pytest.mark.parametrize("op", ["action", "rhs", "postprocess"])
@@ -250,8 +277,8 @@ def _check(u, v, u0, v0, pad_mask):
 
 @pytest.mark.cuda
 def test_streamed_shared_matches_plain(cuda):
-    """Layout (a) at pad 632, where only the streamed kernel fits: 4
-    subdomains tiled to 20 rows (the last block half full)."""
+    """Layout (a) at pad 632, where of the dense kernels only the streamed
+    one fits: 4 subdomains tiled to 20 rows (the last block half full)."""
     ddh, _, _ = _structured_ddh(cuda, wh_maxit=2)
     p = ddh.params
     p = p._replace(Ha=p.Ha.repeat(5, 1), inv_mi=p.inv_mi.repeat(5, 1))
@@ -259,7 +286,7 @@ def test_streamed_shared_matches_plain(cuda):
     rng = np.random.default_rng(2)
     F, G = _masked(rng, mask.cpu().numpy(), cuda), _masked(rng, mask.cpu().numpy(), cuda)
     before = dict(wc.wave_cycle.launches)
-    u, v = wc.wave_cycle(p, F, G, 2)
+    u, v = wc.wave_cycle(p, F, G, 2, variant="streamed")
     torch.cuda.synchronize()
     assert wc.wave_cycle.launches == {**before, "streamed_shared": before["streamed_shared"] + 1}
     _check(u, v, *wc.wave_cycle_plain(p, F, G, 2), mask == 0)
@@ -282,7 +309,7 @@ def test_streamed_grouped_matches_plain(cuda, c):
     rng = np.random.default_rng(3)
     F, G = _masked(rng, mask.cpu().numpy(), cuda), _masked(rng, mask.cpu().numpy(), cuda)
     before = dict(wc.wave_cycle.launches)
-    u, v = wc.wave_cycle(p, F, G, 2, c)
+    u, v = wc.wave_cycle(p, F, G, 2, c, variant="streamed")
     torch.cuda.synchronize()
     assert wc.wave_cycle.launches == {**before, "streamed_grouped": before["streamed_grouped"] + 1}
     _check(u, v, *wc.wave_cycle_plain(p, F, G, 2, c), mask == 0)
@@ -297,8 +324,8 @@ def test_streamed_matches_resident_at_pad_176(cuda):
     m = ddh.gmask.cpu().numpy()
     F, G = _masked(rng, m, cuda), _masked(rng, m, cuda)
     before = dict(wc.wave_cycle.launches)
-    u_r, v_r = wc.wave_cycle(ddh.params, F, G, 1)
-    u_s, v_s = wc.wave_cycle(ddh.params, F, G, 1, streamed=True)
+    u_r, v_r = wc.wave_cycle(ddh.params, F, G, 1, variant="resident")
+    u_s, v_s = wc.wave_cycle(ddh.params, F, G, 1, variant="streamed")
     torch.cuda.synchronize()
     assert wc.wave_cycle.launches == {
         **before, "shared": before["shared"] + 1,

@@ -8,8 +8,8 @@ holds its own Pallas kernel to (``test_pallas_wave_cycle.py``); both sides
 run float32 state through 5 x nt x 2 leapfrog steps, where round-off in the
 stiffness products grows with the step count.
 
-The tests marked ``cuda`` build and launch the Hopper kernel and skip where
-there is no GPU.  They need no JAX: on a machine without it run
+The tests marked ``cuda`` build and launch the Hopper kernels (by default
+the sparse one) and skip where there is no GPU.  They need no JAX: on a machine without it run
 ``python -m pytest --noconftest tests/test_torch_wave_cycle.py -m cuda``.
 """
 
@@ -152,14 +152,91 @@ def test_plain_grouped_matches_per_row():
 
 @pytest.mark.parametrize("pad,fits", [(56, True), (176, True), (216, True), (256, False)])
 def test_shared_memory_admission(pad, fits):
-    """H100 opt-in limit: 232,448 B per block.  Up to the flagship pad (176)
-    and beyond, S fits beside the row state and the resident kernel runs;
-    at the JAX package's pad of 256 it does not, and the streamed kernel
-    takes the cycle."""
+    """H100 opt-in limit: 232,448 B per block.  With a sparse form of S the
+    sparse kernel runs at every pad here.  Without one, up to the flagship
+    pad (176) and beyond the dense S fits beside the row state and the
+    resident kernel runs; at the JAX package's pad of 256 it does not, and
+    the streamed kernel takes the cycle."""
     limit = 232448
+    assert wc.kernel_variant(pad, limit, stride=pad * 30) == "sparse"
     assert wc.kernel_variant(pad, limit) == ("resident" if fits else "streamed")
-    assert wc.kernel_variant(pad, limit, streamed=True) == "streamed"
+    assert wc.kernel_variant(pad, limit, pad * 30, variant="streamed") == "streamed"
     assert (wc.shared_memory_bytes(pad) <= limit) == fits
+
+
+def _f64(params):
+    """Float64 copies of the cycle operands (exact: they hold float32 values)."""
+    return params._replace(**{k: getattr(params, k).double() for k in ("S", "Ha", "inv_mi", "tables")})
+
+
+def _jax_f64(jparams):
+    import jax.numpy as jnp
+
+    return jparams._replace(**{
+        k: jnp.asarray(np.asarray(getattr(jparams, k)), jnp.float64)
+        for k in ("S", "Ha", "inv_mi", "tables")
+    })
+
+
+SPARSE_TOL = 1e-12  # float64: the sparse and dense sums differ only in order
+
+
+def test_sparse_plain_matches_dense_and_xla_scan(shared_case):
+    """Layout (a): the plain cycle through the sparse form equals the dense
+    plain cycle and the JAX scan in float64."""
+    jddh_mod, jparams, F, G, port, pad = shared_case
+    import jax.numpy as jnp
+
+    p64 = _f64(port)
+    F64, G64 = torch.from_numpy(F[:, :pad]).double(), torch.from_numpy(G[:, :pad]).double()
+    form = wc.sparse_form(p64.S)
+    assert form.ptr.shape == (1, pad + 1) and form.val.dtype == torch.float64
+    u, v = wc.wave_cycle_plain(p64, F64, G64, sparse=form)
+    u0, v0 = wc.wave_cycle_plain(p64, F64, G64)
+    assert _rel_max(u, u0) < SPARSE_TOL and _rel_max(v, v0) < SPARSE_TOL
+    u_x, v_x = jddh_mod._wave_cycle_xla(_jax_f64(jparams), jnp.asarray(F, jnp.float64),
+                                        jnp.asarray(G, jnp.float64), 5, precision="highest")
+    assert _rel_max(u, np.asarray(u_x)[:, :pad]) < SPARSE_TOL
+    assert _rel_max(v, np.asarray(v_x)[:, :pad]) < SPARSE_TOL
+
+
+def test_sparse_plain_per_domain_matches_xla_scan():
+    """Layouts (b) and (c) on a per-domain stack: the plain cycle through
+    the sparse form equals the dense plain cycle and the JAX scan in
+    float64.  (A stack with ragged nnz:
+    ``test_torch_sparse_cycle.py``.)"""
+    jddh_mod, jparams, F, G, port, pad = _jax_case(nt_override=60, jitter=True)
+    import jax.numpy as jnp
+
+    p64 = _f64(port)
+    form = wc.sparse_form(p64.S)
+    nnz = (p64.S != 0).sum((1, 2))
+    assert form.ptr.shape == (port.S.shape[0], pad + 1) and form.stride >= int(nnz.max())
+    F64, G64 = torch.from_numpy(F[:, :pad]).double(), torch.from_numpy(G[:, :pad]).double()
+    u, v = wc.wave_cycle_plain(p64, F64, G64, sparse=form)  # (c): one group per row
+    u0, v0 = wc.wave_cycle_plain(p64, F64, G64)
+    assert _rel_max(u, u0) < SPARSE_TOL and _rel_max(v, v0) < SPARSE_TOL
+    u_x, v_x = jddh_mod._wave_cycle_xla(_jax_f64(jparams), jnp.asarray(F, jnp.float64),
+                                        jnp.asarray(G, jnp.float64), 5, precision="highest")
+    assert _rel_max(u, np.asarray(u_x)[:, :pad]) < SPARSE_TOL
+    assert _rel_max(v, np.asarray(v_x)[:, :pad]) < SPARSE_TOL
+
+    c = 3  # (b): runs of c rows against each domain's S
+    gp = p64._replace(Ha=p64.Ha.repeat_interleave(c, 0), inv_mi=p64.inv_mi.repeat_interleave(c, 0))
+    Fb, Gb = F64.repeat_interleave(c, 0), G64.repeat_interleave(c, 0)
+    ub, vb = wc.wave_cycle_plain(gp, Fb, Gb, 2, s_group_size=c, sparse=form)
+    ub0, vb0 = wc.wave_cycle_plain(gp, Fb, Gb, 2, s_group_size=c)
+    assert _rel_max(ub, ub0) < SPARSE_TOL and _rel_max(vb, vb0) < SPARSE_TOL
+    # the JAX scan on the same runs, each row given its run's S
+    jp = _jax_f64(jparams)
+    jp = jp._replace(**{k: jnp.repeat(getattr(jp, k), c, axis=0) for k in ("S", "Ha", "inv_mi")})
+    u_x, v_x = jddh_mod._wave_cycle_xla(jp, jnp.asarray(np.repeat(F, c, 0), jnp.float64),
+                                        jnp.asarray(np.repeat(G, c, 0), jnp.float64), 2,
+                                        precision="highest")
+    assert _rel_max(ub, np.asarray(u_x)[:, :pad]) < SPARSE_TOL
+    assert _rel_max(vb, np.asarray(v_x)[:, :pad]) < SPARSE_TOL
+    with pytest.raises(ValueError, match="sparse form of 1 groups"):
+        wc.wave_cycle_plain(gp, Fb, Gb, 1, s_group_size=c, sparse=form.take(torch.tensor([0])))
 
 
 # ------------------------------------------------------------ on the GPU
@@ -194,7 +271,7 @@ def test_kernel_matches_plain(cuda):
     before = dict(wc.wave_cycle.launches)
     u, v = wc.wave_cycle(ddh.params, Ft, Gt)
     torch.cuda.synchronize()
-    assert wc.wave_cycle.launches == {**before, "shared": before["shared"] + 1}
+    assert wc.wave_cycle.launches == {**before, "sparse_shared": before["sparse_shared"] + 1}
     u0, v0 = wc.wave_cycle_plain(ddh.params, Ft, Gt)
     assert _rel_max(u.cpu(), u0.cpu()) < TOL
     assert _rel_max(v.cpu(), v0.cpu()) < TOL
@@ -213,7 +290,7 @@ def test_kernel_per_row_stiffness_matches_plain(cuda):
     before = dict(wc.wave_cycle.launches)
     u, v = wc.wave_cycle(ddh.params, Ft, Gt)
     torch.cuda.synchronize()
-    assert wc.wave_cycle.launches == {**before, "grouped": before["grouped"] + 1}
+    assert wc.wave_cycle.launches == {**before, "sparse_grouped": before["sparse_grouped"] + 1}
     u0, v0 = wc.wave_cycle_plain(ddh.params, Ft, Gt)
     assert _rel_max(u.cpu(), u0.cpu()) < TOL and _rel_max(v.cpu(), v0.cpu()) < TOL
     pad_mask = ddh.gmask == 0
@@ -228,7 +305,7 @@ def test_kernel_grouped_matches_plain(cuda, c):
     before = dict(wc.wave_cycle.launches)
     u, v = wc.wave_cycle(gp, F, G, s_group_size=c)
     torch.cuda.synchronize()
-    assert wc.wave_cycle.launches == {**before, "grouped": before["grouped"] + 1}
+    assert wc.wave_cycle.launches == {**before, "sparse_grouped": before["sparse_grouped"] + 1}
     u0, v0 = wc.wave_cycle_plain(gp, F, G, s_group_size=c)
     assert _rel_max(u.cpu(), u0.cpu()) < TOL and _rel_max(v.cpu(), v0.cpu()) < TOL
     assert (u[gmask == 0] == 0).all() and (v[gmask == 0] == 0).all()
@@ -236,8 +313,9 @@ def test_kernel_grouped_matches_plain(cuda, c):
 
 @pytest.mark.cuda
 def test_kernel_refuses_bad_groups_and_large_pad(cuda):
-    """Bad runs still raise; a pad whose S exceeds a block's shared memory
-    runs the streamed kernel."""
+    """Bad runs still raise; at a pad whose dense S exceeds a block's shared
+    memory the sparse kernel runs by default, the streamed one when forced,
+    and a forced resident kernel raises."""
     _, gp, F, G, _ = _grouped_case(cuda, c=12, nt_override=10)
     with pytest.raises(ValueError, match="multiple of 8"):
         wc.wave_cycle(gp, F, G, s_group_size=12)
@@ -248,6 +326,12 @@ def test_kernel_refuses_bad_groups_and_large_pad(cuda):
     p = gp._replace(S=torch.zeros((1, big, big), device=cuda), Ha=z, inv_mi=z)
     before = dict(wc.wave_cycle.launches)
     u, v = wc.wave_cycle(p, z, z, s_group_size=8)
+    us, vs = wc.wave_cycle(p, z, z, s_group_size=8, variant="streamed")
     torch.cuda.synchronize()
-    assert wc.wave_cycle.launches == {**before, "streamed_grouped": before["streamed_grouped"] + 1}
-    assert (u == 0).all() and (v == 0).all()
+    assert wc.wave_cycle.launches == {
+        **before, "sparse_grouped": before["sparse_grouped"] + 1,
+        "streamed_grouped": before["streamed_grouped"] + 1,
+    }
+    assert (u == 0).all() and (v == 0).all() and (us == 0).all() and (vs == 0).all()
+    with pytest.raises(ValueError, match="no kernel resident"):
+        wc.wave_cycle(p, z, z, s_group_size=8, variant="resident")
