@@ -45,9 +45,34 @@ It imports nothing of JAX.  Phases, each raising on failure:
    transfer-probe rows (256 runs of 192 rows, pad 320, nt 1,283).
 11. The streamed kernel forced at the flagship shape (pad 176) against the
    resident and sparse kernels of phase 2.
+12. ``run_config(helmholtz_ddh_1e6)`` at full size (nx 128, the coupled
+   system to 1e-6: fp64 refinement of fp32 FGMRES(20), one bounded DDH
+   solve as right preconditioner P): success, <= 12 outer restarts (JAX on
+   the TPU: 10), <= 6 refinement steps, not stagnated, and a true relative
+   residual <= 1e-6 recomputed with the generic (non-kron) fp64 operator on
+   the same data; the sparse kernel runs in ``prepare`` only (P launches
+   none) and no dense kernel runs; P repeats bitwise on the same input and
+   the first and the warm run take the same counts.  Prints solve, warm and
+   prepare seconds and ms per P.
+13. ``run_config(helmholtz_ddh_unstructured_1e6)``: the checks of phase 12
+   with <= 8 restarts (JAX: 6), and a solution within 1e-5 of an fp64
+   ``torch.linalg.solve`` of the dense coupled operator on the card.
+14. ``run_config(poisson_structured)``: 14 restarts / 292 matvecs, relative
+   residual <= 1e-6; ``run_config(helmholtz_unpreconditioned, maxit=10)``:
+   9 / 1,810 and not successful (the pinned stagnation level).
+15. The fp32 kron coupled matvec against the fp64 generic one at nx 128 on a
+   seeded vector, within 1e-6 relative; both timed with CUDA events.
+16. ``large_unstructured --levels 3 --domains 256 --composite`` through
+   ``run_case`` (the CLI's per-case entry): the lambda-solve of phase 9 and
+   the coupled 1e-6 solve on the same partition.  The ``composite`` record
+   must succeed with a true fp64 relative residual <= 1e-6, <= 10 outer
+   restarts (JAX on the TPU: 8) and <= 6 refinement steps; the run must
+   launch only the sparse grouped kernel, exactly twice phase 9's count
+   (the two prepares of one partition; P launches none).
 Every comparison holds a kernel within 2e-4 of the plain cycle relative to
 the max of u and v, with padded slots exactly 0.  The main-path runs
-(phases 3, 5, 6, 7, 9) must launch the sparse kernel and no dense one.
+(phases 3, 5, 6, 7, 9, 12, 13, 16) must launch the sparse kernel and no
+dense one.
 
 Every kernel count is set to 0 just before each main-path run and read just
 after; the ``launches`` of a kernel in the JSON line is the sum over those
@@ -259,6 +284,99 @@ def _transfer_run(wc, run, what, max_restarts, jax_matvecs, matvec_slack, gm,
     if not resid <= 1.2 * gm.tol:
         _fail(f"{what}: plain-cycle residual {resid:.3e} > {1.2 * gm.tol:.2e}")
     return res, launches
+
+
+def _ms_per_call(fn, device, reps: int = 5) -> float:
+    """Host-clock milliseconds per call of ``fn`` after one warm-up call,
+    synchronised on the card (for host-bound work of many launches)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize(device)
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def _composite_run(wc, run, what, max_restarts, fem, dev):
+    """Drive one ``run_helmholtz_ddh`` run and check it: success, restarts,
+    refinement steps, the sparse kernel only in ``prepare`` (P launches no
+    kernel) and the true fp64 relative residual with the generic operator
+    on ``fem`` (the space the solve ran on; the solution comes back in H1
+    numbering and is mapped onto it).  Returns (result, launches during the
+    run, and a dict of the generic fp64 operator ``op``, the rhs ``b``, the
+    solution ``U`` on ``fem``, the face space ``fs``, the projected
+    coefficients ``a2``, ``af`` and the ms per P ``p_ms``)."""
+    import torch
+
+    from cuddhelmholtz_tpu_torch.examples.drivers import point_sources, wave_speed_coeff
+    from cuddhelmholtz_tpu_torch.models.helmholtz import (
+        apply_helmholtz,
+        helmholtz_rhs,
+        make_helmholtz_op,
+        project_coefficients,
+    )
+    from cuddhelmholtz_tpu_torch.spaces.h1 import FaceSpace, H1Space
+
+    wc.reset_launches()
+    res = run()
+    launches = dict(wc.wave_cycle.launches)
+    ex = res.extra
+    pre = ex["precompute"]
+    P = ex["precond"]
+    n2 = 2 * ex["ndof"]
+    v = torch.from_numpy(np.random.default_rng(3).standard_normal(n2)).to(dev)
+    wc.reset_launches()
+    p_ms = _ms_per_call(lambda: P(v), dev)
+    p_launches = sum(wc.wave_cycle.launches.values())
+    p_repeats = [bool(torch.equal(P(v), P(v))) for _ in range(2)]
+    first = ex["first_run"]
+    same_hist = first["res_norm"] == list(res.res_norm)
+    prepare_s = pre["transfer_seconds"] + pre["io_seconds"]
+    print(f"{what}: success={res.success} restarts={res.num_iter} matvecs={res.num_matvec} "
+          f"refine_steps={ex['refine_steps']} stagnated={ex['stagnated']} "
+          f"inner tols {ex['inner_tols']}; true residual history {list(res.res_norm)} "
+          f"(rel {res.res_norm[-1] / res.res_norm[0]:.3e}); solve {res.seconds:.3f} s, warm "
+          f"{ex['warm_seconds']:.3f} s, setup {ex['setup_seconds']:.3f} s (prepare "
+          f"{prepare_s:.3f} s: transfer {pre['transfer_seconds']:.3f} s, io "
+          f"{pre['io_seconds']:.3f} s, nu={pre['transfer_nu']}); P applied {ex['n_precond']} "
+          f"times in the warm run, {p_ms:.3f} ms per P alone ({p_launches} launches), "
+          f"{1e3 * ex['warm_seconds'] / ex['n_precond']:.3f} ms of warm solve per P; "
+          f"launches during run {launches}; first run {first['num_iter']} / "
+          f"{first['num_matvec']}, history bitwise as the warm run's: {same_hist}; P repeats "
+          f"bitwise: {p_repeats}")
+    if not res.success or ex["stagnated"]:
+        _fail(f"{what}: success={res.success}, stagnated={ex['stagnated']}")
+    if res.num_iter > max_restarts or ex["refine_steps"] > 6:
+        _fail(f"{what}: {res.num_iter} restarts (> {max_restarts}) or "
+              f"{ex['refine_steps']} refinement steps (> 6)")
+    if p_launches != 0:
+        _fail(f"{what}: P launched {p_launches} kernels")
+    if not all(p_repeats) or (first["num_iter"], first["num_matvec"]) != (
+            res.num_iter, res.num_matvec):
+        _fail(f"{what}: P does not repeat bitwise ({p_repeats}) or the first run's counts "
+              f"{first['num_iter']} / {first['num_matvec']} differ from the warm run's")
+    if not np.isfinite(res.solution).all() or res.solution.shape != (n2,):
+        _fail(f"{what}: solution has shape {res.solution.shape} or non-finite values")
+    # the generic fp64 operator on the same data, on the space of the solve
+    fs = FaceSpace(fem, fem.mesh.boundary_edges)
+    a2, af = project_coefficients(fem, fs, wave_speed_coeff)
+    op = make_helmholtz_op(ex["omega"], a2, af, fem, fs, kron=False, device=dev)
+    b = helmholtz_rhs(fem, lambda xy: point_sources(xy, ex["omega"])).to(dev)
+    nd = ex["ndof"]
+    ref = H1Space(fem.mesh, fem.basis)
+    r2f = np.zeros(nd, np.int64)  # H1 dof -> dof of fem at the same node
+    r2f[ref.dofs.reshape(-1)] = fem.dofs.reshape(-1)
+    U = np.zeros(n2)
+    U[np.concatenate([r2f, nd + r2f])] = res.solution
+    U = torch.from_numpy(U).to(dev)
+    rel = float(torch.linalg.vector_norm(b - apply_helmholtz(op, U)) / torch.linalg.vector_norm(b))
+    print(f"{what}: true relative residual with the generic fp64 operator {rel:.3e}")
+    if not rel <= 1e-6:
+        _fail(f"{what}: generic fp64 relative residual {rel:.3e} > 1e-6")
+    return res, launches, dict(op=op, b=b, U=U, fs=fs, a2=a2, af=af, p_ms=p_ms)
 
 
 def main() -> int:
@@ -509,6 +627,7 @@ def main() -> int:
         _fail(f"L3: pad {lddh.pad}, shared_S {lddh.shared_S}, nu {pre['transfer_nu']}, "
               f"layout {pre['transfer_layout']}; want 320, False, 256, grouped")
     _only_sparse(launches, "grouped", "L3 probes")
+    launches9 = dict(launches)
     for k in total:
         total[k] += launches[k]
 
@@ -550,6 +669,108 @@ def main() -> int:
         print(f"streamed vs {v} at pad {ddh.pad}: rel err {err:.3e}")
         if not err < 2e-4:
             _fail(f"streamed and {v} kernels disagree at pad {ddh.pad}: {err:.3e}")
+
+    # --- 12. the composite 1e-6 solve, structured (nx 128) ---------------------
+    from cuddhelmholtz_tpu_torch.config import (
+        HELMHOLTZ_DDH_1E6,
+        HELMHOLTZ_DDH_UNSTRUCTURED_1E6,
+        HELMHOLTZ_UNPRECONDITIONED,
+        POISSON_STRUCTURED,
+    )
+    from cuddhelmholtz_tpu_torch.models.helmholtz import apply_helmholtz, make_helmholtz_op
+    from cuddhelmholtz_tpu_torch.ops.structured import GridH1Space
+
+    hcfg = HELMHOLTZ_DDH_1E6
+    gfem = GridH1Space(Mesh2D.uniform_rect(hcfg.nx, -1.0, 1.0, hcfg.nx, -1.0, 1.0),
+                       Basis(hcfg.deg + 1), hcfg.nx, hcfg.nx)
+    res12, launches, c12 = _composite_run(
+        wc, lambda: run_config(hcfg, device=dev), "helmholtz_ddh_1e6", 12, gfem, dev)
+    _only_sparse(launches, "shared", "helmholtz_ddh_1e6 prepare")
+    for k in total:
+        total[k] += launches[k]
+    del res12
+
+    # --- 13. the composite 1e-6 solve on the unstructured square ---------------
+    res13, launches, c13 = _composite_run(
+        wc, lambda: run_config(HELMHOLTZ_DDH_UNSTRUCTURED_1E6, device=dev),
+        "helmholtz_ddh_unstructured_1e6", 8, ufem, dev)
+    _only_sparse(launches, "grouped", "helmholtz_ddh_unstructured_1e6 prepare")
+    for k in total:
+        total[k] += launches[k]
+    n2 = c13["U"].shape[0]
+    t0 = time.perf_counter()
+    eye = torch.eye(n2, dtype=torch.float64, device=dev)
+    A = torch.stack([apply_helmholtz(c13["op"], eye[i]) for i in range(n2)], dim=1)
+    x_direct = torch.linalg.solve(A, c13["b"])
+    torch.cuda.synchronize()
+    err = float(torch.linalg.vector_norm(c13["U"] - x_direct)
+                / torch.linalg.vector_norm(x_direct))
+    print(f"helmholtz_ddh_unstructured_1e6: dense operator {n2}x{n2}, fp64 direct solve "
+          f"{time.perf_counter() - t0:.2f} s; solution within {err:.3e} of it")
+    if not err < 1e-5:
+        _fail(f"unstructured composite solution {err:.3e} from the dense direct solve (>= 1e-5)")
+    del res13, A, eye
+
+    # --- 14. Poisson and the unpreconditioned Helmholtz solve --------------------
+    res = run_config(POISSON_STRUCTURED, device=dev)
+    rel = float(res.res_norm[-1] / res.res_norm[0])
+    print(f"poisson_structured: success={res.success} restarts={res.num_iter} "
+          f"matvecs={res.num_matvec} rel {rel:.3e}, {res.seconds:.3f} s")
+    if (res.num_iter, res.num_matvec) != (14, 292) or not (res.success and rel <= 1e-6):
+        _fail(f"poisson_structured: {res.num_iter} / {res.num_matvec}, rel {rel:.3e}; "
+              "want 14 / 292 and <= 1e-6")
+    res = run_config(HELMHOLTZ_UNPRECONDITIONED, maxit=10, device=dev)
+    rel = float(res.res_norm[-1] / res.res_norm[0])
+    print(f"helmholtz_unpreconditioned (maxit 10): success={res.success} "
+          f"restarts={res.num_iter} matvecs={res.num_matvec} rel {rel:.6f}, {res.seconds:.3f} s "
+          f"({1e3 * res.seconds / res.num_matvec:.3f} ms per matvec incl. GMRES(200))")
+    if (res.num_iter, res.num_matvec, res.success) != (9, 1810, False):
+        _fail(f"helmholtz_unpreconditioned: {res.num_iter} / {res.num_matvec}, "
+              f"success={res.success}; want 9 / 1810, not successful")
+
+    # --- 15. fp32 kron against fp64 generic coupled matvec at nx 128 -----------
+    op64 = c12["op"]
+    op32 = make_helmholtz_op(hcfg.omega, c12["a2"].astype(np.float32),
+                             c12["af"].astype(np.float32), gfem, c12["fs"],
+                             dtype=torch.float32, device=dev)
+    x64 = torch.from_numpy(np.random.default_rng(15).standard_normal(2 * gfem.ndof)).to(dev)
+    x32 = x64.to(torch.float32)
+    y64 = apply_helmholtz(op64, x64)
+    y32 = apply_helmholtz(op32, x32)
+    err = float(torch.linalg.vector_norm(y32.double() - y64) / torch.linalg.vector_norm(y64))
+    mv_ms = {}
+    for name in ("kron32", "generic64", "generic64", "kron32"):
+        fn = (lambda: apply_helmholtz(op32, x32)) if name == "kron32" else (
+            lambda: apply_helmholtz(op64, x64))
+        mv_ms.setdefault(name, []).append(_timed(fn, 50)[1])
+    print(f"coupled matvec at nx {hcfg.nx} ({2 * gfem.ndof} unknowns): fp32 kron vs fp64 generic "
+          f"rel err {err:.3e}; fp32 kron {sum(mv_ms['kron32']) / 2:.4f} ms (turns "
+          f"{mv_ms['kron32']}), fp64 generic {sum(mv_ms['generic64']) / 2:.4f} ms (turns "
+          f"{mv_ms['generic64']}); ms per P: structured {c12['p_ms']:.3f}, unstructured "
+          f"{c13['p_ms']:.3f}")
+    if not err <= 1e-6:
+        _fail(f"fp32 kron coupled matvec {err:.3e} from the fp64 generic one (> 1e-6)")
+    del op32, op64, c12, c13
+
+    # --- 16. large_unstructured L3 --composite ---------------------------------
+    wc.reset_launches()
+    rec = lu.run_case("unstructured_L3", lmesh, 256, 3, lomega, ucfg.gmres.tol,
+                      composite=True, device=dev)
+    launches = dict(wc.wave_cycle.launches)
+    comp = rec["composite"]
+    print(f"large_unstructured L3 --composite: lambda-solve {rec['restarts']} / "
+          f"{rec['matvecs']} in {rec['solve_seconds']:.3f} s (prepare "
+          f"{rec['prepare_seconds']:.3f} s); composite {comp}; launches {launches}")
+    _only_sparse(launches, "grouped", "L3 --composite")
+    if launches["sparse_grouped"] != 2 * launches9["sparse_grouped"]:
+        _fail(f"L3 --composite launched {launches['sparse_grouped']} sparse kernels; want "
+              f"twice phase 9's {launches9['sparse_grouped']} (two prepares, none in P)")
+    if not (comp["success"] and comp["final_rel_res"] <= 1e-6 and comp["iters"] <= 10
+            and comp["refine_steps"] <= 6):
+        _fail(f"L3 --composite: {comp}; want success, rel <= 1e-6, <= 10 restarts and "
+              "<= 6 refinement steps")
+    for k in total:
+        total[k] += launches[k]
     print(f"kernel launches over the main-path runs: {total}")
     for row in (r for rows in shapes.values() for r in rows):
         print(f"sparse kernel at {row['at']}: {row['ms']:.3f} ms against {row['dense']} "

@@ -4,19 +4,25 @@ The JAX package stays the reference; this package mirrors its layout so each
 counterpart is easy to find:
 
   utils/      quadrature rules, nodal bases, ``norm``       (NumPy float64 setup)
-  mesh/       Mesh2D geometry + metric caches, mesh files, refinement
-  spaces/     H1Space, EnsembleSpace (subdomain tables, ``cmap``)
-  ops/        lumped mass, collocation functional; ops/cuda: the Hopper
-              WaveHoltz kernels (``csrc/wave_cycle_sparse.cu``, S's non-zeros
-              in shared memory, the default; the dense ``csrc/wave_cycle.cu``,
-              S resident, and ``csrc/wave_cycle_streamed.cu``, S streamed)
-              and their plain version
-  models/     Helmholtz forcing
-  solvers/    GMRES(m), the DDH preconditioner (direct and transfer/io paths)
-  examples/   ``run_ddh``, ``run_config``, ``large_unstructured``, ``profile_solve``
+  mesh/       Mesh2D geometry + element/edge metric caches, mesh files, refinement
+  spaces/     H1Space, FaceSpace, EnsembleSpace (subdomain tables, ``cmap``)
+  ops/        matrix-free stiffness, mass and face mass, the structured grid
+              numbering (GridH1Space) and kron fast path, functionals;
+              ops/cuda: the Hopper WaveHoltz kernels
+              (``csrc/wave_cycle_sparse.cu``, S's non-zeros in shared memory,
+              the default; the dense ``csrc/wave_cycle.cu``, S resident, and
+              ``csrc/wave_cycle_streamed.cu``, S streamed) and their plain
+              version
+  models/     the coupled Helmholtz operator, coefficient projection, Poisson
+  solvers/    GMRES(m) and flexible GMRES(m), the DDH preconditioner (direct
+              and transfer/io paths)
+  examples/   ``run_poisson``, ``run_helmholtz``, ``run_ddh``,
+              ``run_helmholtz_ddh``, ``run_config``, ``large_unstructured``,
+              ``profile_solve``
 
 It imports ``torch`` and never ``jax``.  Host setup runs in NumPy float64 as
-the JAX package does; device state is float32.
+the JAX package does; the DDH's device state is float32, the global
+operators run in the dtype they are built with.
 """
 
 import torch as _torch

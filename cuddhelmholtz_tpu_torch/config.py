@@ -1,10 +1,12 @@
 """Problem/solver configuration dataclasses.
 
 Counterpart of ``cuddhelmholtz_tpu/config.py`` (copied: importing the JAX
-module would import jax).  Three DDH entries are carried, ``ddh_structured``,
-``ddh_unstructured_square`` and ``ddh_512_block32``, with the fields the port
-reads; the JAX package's ``coarse``, ``rhs_split`` and ``n_sources`` fields
-come with the code that reads them.
+module would import jax).  Seven entries are carried with the JAX fields and
+values: ``poisson_structured``, ``helmholtz_unpreconditioned``,
+``ddh_structured``, ``ddh_unstructured_square``, ``ddh_512_block32``,
+``helmholtz_ddh_1e6`` and ``helmholtz_ddh_unstructured_1e6``.  The JAX
+package's ``coarse``, ``rhs_split`` and ``n_sources`` fields come with the
+code that reads them.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ class GmresConfig:
 @dataclass(frozen=True)
 class ProblemConfig:
     name: str
-    kind: str = "ddh"  # the JAX package's other kinds are not ported
+    kind: str = "ddh"  # "poisson" | "helmholtz" | "ddh" | "helmholtz_ddh"
     nx: int = 128
     deg: int = 3
     mesh: str = "uniform_rect"  # or "unstructured_square"
@@ -40,6 +42,22 @@ class ProblemConfig:
     def omega(self) -> float:
         return 2 * math.pi * self.nx / 10
 
+
+POISSON_STRUCTURED = ProblemConfig(
+    name="poisson_structured",
+    kind="poisson",
+    nx=15,
+    gmres=GmresConfig(m=20, maxit=20, tol=1e-6),
+)
+
+# unpreconditioned GMRES(200) on the coupled system; it stagnates, so a cut
+# maxit pins a residual level
+HELMHOLTZ_UNPRECONDITIONED = ProblemConfig(
+    name="helmholtz_unpreconditioned",
+    kind="helmholtz",
+    nx=128,
+    gmres=GmresConfig(m=200, maxit=10_000, tol=1e-6),
+)
 
 DDH_STRUCTURED = ProblemConfig(
     name="ddh_structured",
@@ -64,4 +82,24 @@ DDH_512_BLOCK32 = ProblemConfig(
     nx=512,  # omega = 2*pi*51.2
     block_size=32,
     gmres=GmresConfig(m=20, maxit=100, tol=1e-4),
+)
+
+# the coupled system to 1e-6: fp64 refinement of fp32 FGMRES, a bounded
+# fp32 DDH solve as the right preconditioner
+HELMHOLTZ_DDH_1E6 = ProblemConfig(
+    name="helmholtz_ddh_1e6",
+    kind="helmholtz_ddh",
+    nx=128,
+    gmres=GmresConfig(m=20, maxit=100, tol=1e-6),
+)
+
+# the target metric: outer iterations to 1e-6 on the unstructured square,
+# DDH-preconditioned (coordinate-bisection partition)
+HELMHOLTZ_DDH_UNSTRUCTURED_1E6 = ProblemConfig(
+    name="helmholtz_ddh_unstructured_1e6",
+    kind="helmholtz_ddh",
+    nx=8,  # sets omega; geometry comes from the mesh file
+    mesh="unstructured_square",
+    n_domains=8,
+    gmres=GmresConfig(m=20, maxit=100, tol=1e-6),
 )

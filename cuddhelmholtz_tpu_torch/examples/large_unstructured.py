@@ -8,14 +8,16 @@ resolution), partition by median coordinate bisection and run the
 transfer-path lambda-solve to ``tol``; optionally repeat on a matched
 jittered-grid control.  At ``--levels 3 --domains 256`` every subdomain has
 its own stiffness at pad 320, so the probes run the sparse kernel in the
-grouped layout.
+grouped layout.  ``--composite`` also solves the coupled system to 1e-6
+(``run_helmholtz_ddh`` on the same partition) and adds its ``composite``
+record.
 
-The JAX example's two-level coarse space (``--coarse``) and composite 1e-6
-solve (``--composite``) are not ported yet and raise.
+The JAX example's two-level coarse space (``--coarse``) is not ported yet
+and raises.
 
-Usage (on the card):
+Usage (on the card; ``--device cpu`` runs the CPU path):
   python -m cuddhelmholtz_tpu_torch.examples.large_unstructured \\
-      [--levels 3] [--domains 256] [--deg 3] [--control] [--out FILE]
+      [--levels 3] [--domains 256] [--deg 3] [--composite] [--control] [--out FILE]
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ import numpy as np
 from ..mesh.io import load_unstructured_square
 from ..mesh.refine import jittered_grid, refine_quad_mesh
 from ..spaces.ensemble import coordinate_bisection_labels
-from .drivers import DriverResult, run_ddh
+from .drivers import DriverResult, run_ddh, run_helmholtz_ddh
 
 
 def log(*a):
@@ -90,10 +92,6 @@ def run_case(name: str, mesh, n_domains: int, deg: int, omega: float, tol: float
         raise NotImplementedError(
             "coarse: the two-level coarse space is not ported yet (ROADMAP queue 1, item 15)"
         )
-    if composite:
-        raise NotImplementedError(
-            "composite: the coupled 1e-6 solve is not ported yet (ROADMAP queue 1, item 13)"
-        )
     res = solve_case(mesh, n_domains, deg, omega, tol, device=device)
     rec = case_record(name, mesh, res)
     log(f"[{name}] nel={rec['n_elem']} ndof={rec['ndof']} omega={rec['omega']:.1f} "
@@ -101,6 +99,20 @@ def run_case(name: str, mesh, n_domains: int, deg: int, omega: float, tol: float
         f"routes={rec['roll_routes']} prepare {rec['prepare_seconds']:.1f}s: "
         f"{rec['restarts']} restarts / {rec['matvecs']} matvecs, solve "
         f"{rec['solve_seconds']:.2f}s success={rec['success']}")
+    if composite:
+        labels, ndom = coordinate_bisection_labels(mesh, n_domains)
+        r = run_helmholtz_ddh(nx=1, deg=deg, m=20, maxit=100, tol=1e-6, mesh=mesh,
+                              element_labels=labels, n_domains=ndom, omega=omega,
+                              device=device)
+        rec["composite"] = {
+            "success": bool(r.success),
+            "iters": int(r.num_iter),
+            "matvecs": int(r.num_matvec),
+            "warm_seconds": r.extra.get("warm_seconds"),
+            "refine_steps": r.extra.get("refine_steps"),
+            "final_rel_res": float(r.res_norm[-1] / r.res_norm[0]),
+        }
+        log(f"[{name}] composite 1e-6: {rec['composite']}")
     return rec
 
 
@@ -116,10 +128,11 @@ def main(argv=None):
     ap.add_argument("--coarse", default=None, choices=["additive", "multiplicative"],
                     help="two-level correction (not ported yet)")
     ap.add_argument("--composite", action="store_true",
-                    help="also run the coupled 1e-6 solve (not ported yet)")
+                    help="also run the coupled 1e-6 solve")
     ap.add_argument("--control", action="store_true",
                     help="also run the matched jittered-grid control case")
     ap.add_argument("--out", default=None, help="write JSON records here")
+    ap.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
 
     mesh = refine_quad_mesh(load_unstructured_square(), args.levels)
@@ -134,7 +147,8 @@ def main(argv=None):
         nxj = int(round(np.sqrt(mesh.n_elem)))
         cases.append((f"jittered_{nxj}x{nxj}", jittered_grid(nxj, nxj, amount=0.25, seed=1)))
     recs = [
-        run_case(name, m, args.domains, args.deg, omega, args.tol, args.composite, args.coarse)
+        run_case(name, m, args.domains, args.deg, omega, args.tol, args.composite, args.coarse,
+                 device=args.device)
         for name, m in cases
     ]
     for r in recs:

@@ -1,12 +1,13 @@
 """Mesh loading.
 
-Counterpart of ``load_mesh_dir`` and ``load_unstructured_square`` in
-``cuddhelmholtz_tpu/mesh/io.py``: the same repository-root ``meshes/`` data
-files, read with NumPy.
+Counterpart of ``load_mesh_dir``, ``load_unstructured_square`` and
+``to_file`` in ``cuddhelmholtz_tpu/mesh/io.py``: the same repository-root
+``meshes/`` data files, read with NumPy, and the raw float64 output dumps.
 """
 
 from __future__ import annotations
 
+import os
 from pathlib import Path
 
 import numpy as np
@@ -32,3 +33,10 @@ def load_mesh_dir(path) -> Mesh2D:
 def load_unstructured_square() -> Mesh2D:
     """The 140-vertex / 119-element unstructured quad mesh of [-1, 1]^2."""
     return load_mesh_dir(MESH_DIR / "unstructured_square")
+
+
+def to_file(path: str, array) -> None:
+    """Dump a float64 array as raw binary in Fortran order (the reference's
+    output format, readable with ``numpy.fromfile``)."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.asarray(array, dtype=np.float64).ravel(order="F").tofile(path)

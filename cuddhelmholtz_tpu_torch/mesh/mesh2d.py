@@ -42,6 +42,20 @@ class ElementMetrics:
     coords: np.ndarray
 
 
+@dataclass(frozen=True)
+class EdgeMetrics:
+    """Per-(edge-set, quadrature) collocated edge geometry.
+
+    measures: (ne, q) arclength factor ds/dxi
+    coords:   (ne, q, 2)
+    normals:  (ne, q, 2) outward from the edge's first element
+    """
+
+    measures: np.ndarray
+    coords: np.ndarray
+    normals: np.ndarray
+
+
 class Mesh2D:
     """Quadrilateral mesh defined by vertex coordinates and connectivity.
 
@@ -62,6 +76,7 @@ class Mesh2D:
         self.elem_vertices = elem_vertices
         self._build_edges()
         self._metric_cache: dict[str, ElementMetrics] = {}
+        self._edge_metric_cache: dict[tuple, EdgeMetrics] = {}
 
     @classmethod
     def uniform_rect(
@@ -154,12 +169,28 @@ class Mesh2D:
     def n_elem(self) -> int:
         return len(self.elem_vertices)
 
+    @property
+    def n_vertices(self) -> int:
+        return len(self.vertices)
+
+    @property
+    def n_edges(self) -> int:
+        return len(self.edge_vertices)
+
+    @property
+    def max_element_order(self) -> int:
+        """Polynomial order of the geometry map (1 for bilinear quads)."""
+        return 1
+
     def edge_lengths(self) -> np.ndarray:
         d = self.vertices[self.edge_vertices[:, 1]] - self.vertices[self.edge_vertices[:, 0]]
         return np.hypot(d[:, 0], d[:, 1])
 
     def min_h(self) -> float:
         return float(self.edge_lengths().min())
+
+    def max_h(self) -> float:
+        return float(self.edge_lengths().max())
 
     def element_corner_coords(self) -> np.ndarray:
         """(nel, 4, 2) physical coordinates of each element's vertices."""
@@ -199,3 +230,28 @@ class Mesh2D:
             X = self.physical_coordinates(quad.x, quad.x)
             self._metric_cache[key] = ElementMetrics(J, detJ, X)
         return self._metric_cache[key]
+
+    def edge_metrics(self, quad: QuadratureRule, edges: np.ndarray | None = None) -> EdgeMetrics:
+        """Collocated edge measures/coords/normals at quad points (cached).
+
+        ``edges`` selects a subset by edge id (default: all edges).  Straight
+        edges have constant measure |x1-x0|/2 and constant normal; the normal
+        points outward from the first element (sign flips for sides 2, 3).
+        """
+        if edges is None:
+            edges = np.arange(self.n_edges, dtype=np.int32)
+        edges = np.asarray(edges, dtype=np.int32)
+        key = (quad.name, edges.tobytes())
+        if key not in self._edge_metric_cache:
+            x0 = self.vertices[self.edge_vertices[edges, 0]]
+            x1 = self.vertices[self.edge_vertices[edges, 1]]
+            d = x1 - x0
+            length = np.hypot(d[:, 0], d[:, 1])
+            meas = np.repeat((length / 2.0)[:, None], quad.n, axis=1)
+            t = 0.5 * (quad.x + 1.0)
+            coords = x0[:, None, :] + d[:, None, :] * t[None, :, None]
+            sgn = np.where(np.isin(self.edge_sides[edges, 0], (2, 3)), -1.0, 1.0)
+            normals = np.stack([sgn * d[:, 1] / length, -sgn * d[:, 0] / length], axis=1)
+            normals = np.repeat(normals[:, None, :], quad.n, axis=1)
+            self._edge_metric_cache[key] = EdgeMetrics(meas, coords, normals)
+        return self._edge_metric_cache[key]

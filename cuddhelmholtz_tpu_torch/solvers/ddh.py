@@ -41,7 +41,7 @@ import torch
 from torch import nn
 
 from ..ops.cuda.wave_cycle import ROWS_PER_BLOCK, WH_MAXIT, SparseS, sparse_form, wave_cycle
-from ..ops.mass import lumped_mass_diagonal
+from ..ops.mass import assemble, assembly_table, lumped_mass_diagonal
 from ..spaces.ensemble import EnsembleSpace, structured_labels
 from ..spaces.h1 import H1Space
 from .gmres import GmresResult, gmres
@@ -73,12 +73,13 @@ class DDHParams(NamedTuple):
     B0: torch.Tensor  # (ndom, pf) own lambda id == d*pf + k (-1 none/lost)
     B1: torch.Tensor  # (ndom, pf) dual lambda id, own-slot layout (-1 none)
     tables: torch.Tensor  # (nt, 5): cs_half0, sn_half0, cs_half1, sn_half1, K_t
+    sol_table: torch.Tensor  # (g_ndof, k) ``assembly_table`` of gI (the port's own)
     K0: float  # half-weighted filter at t=0
     dt: float
     omega: float
 
 
-_TENSOR_FIELDS = DDHParams._fields[:13]
+_TENSOR_FIELDS = DDHParams._fields[:13]  # the JAX package's tensor fields
 _ROW_FIELDS = ("gI", "gmask", "F_weight", "Ha", "inv_mi", "m_gmi")  # (ndom, pad)
 _INDEX_FIELDS = ("gI", "fslot", "B0", "B1")
 
@@ -187,10 +188,14 @@ def _sync(device: torch.device) -> None:
 
 
 def _to_device(arrays: dict, device) -> dict:
+    """The device tensors of ``DDHParams``: the JAX package's fields from
+    ``arrays`` and the solution assembly table built from its ``gI``."""
     out = {}
     for name in _TENSOR_FIELDS:
         dtype = torch.int64 if name in _INDEX_FIELDS else torch.float32
         out[name] = torch.tensor(np.asarray(arrays[name]), dtype=dtype, device=device)
+    gI = np.asarray(arrays["gI"])
+    out["sol_table"] = torch.as_tensor(assembly_table(gI, int(gI.max()) + 1), device=device)
     return out
 
 
@@ -478,7 +483,7 @@ class DDH(nn.Module):
     @property
     def params(self) -> DDHParams:
         return DDHParams(
-            **{name: getattr(self, name) for name in _TENSOR_FIELDS},
+            **{name: getattr(self, name) for name in (*_TENSOR_FIELDS, "sol_table")},
             K0=self.K0,
             dt=self.dt32,
             omega=self.omega32,
@@ -803,14 +808,14 @@ def _scatter_updates(params: DDHParams, lam0, mu0, u, v, n_lambda: int) -> torch
 
 
 def _scatter_solution(params: DDHParams, u, v, g_ndof: int) -> torch.Tensor:
-    """Mass-weighted scatter-add of the subdomain solutions (atomic on a
-    GPU, so the summation order varies from run to run)."""
+    """Mass-weighted assembly of the subdomain solutions into [u; v] of
+    length 2 g_ndof: each global DOF sums its slots in a fixed order
+    (``assemble`` with ``sol_table``), so no float atomics decide the order
+    of a sum and the result repeats bitwise."""
     w = params.m_gmi
-    idx = torch.where(params.gI >= 0, params.gI, g_ndof).reshape(-1)
-    y = torch.zeros((2, g_ndof + 1), dtype=u.dtype, device=u.device)
-    y[0].index_add_(0, idx, (w * u).reshape(-1))
-    y[1].index_add_(0, idx, (w * v).reshape(-1))
-    return y[:, :g_ndof].reshape(-1)
+    if params.sol_table.shape[0] != g_ndof:
+        raise ValueError(f"sol_table covers {params.sol_table.shape[0]} DOFs, not {g_ndof}")
+    return torch.cat([assemble(params.sol_table, w * u), assemble(params.sol_table, w * v)])
 
 
 def ddh_action(

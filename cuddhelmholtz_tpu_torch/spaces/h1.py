@@ -3,12 +3,13 @@
 Counterpart of ``H1Space`` in ``cuddhelmholtz_tpu/spaces/h1.py``: the same
 first-occurrence numbering over the flat (i fastest, then j, then element)
 traversal, so ``dofs`` agrees bitwise with the JAX package.  ``FaceSpace`` is
-not on the direct DDH path and is not ported yet.
+the trace space on a face list (the absorbing or Dirichlet boundary).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..mesh.mesh2d import Mesh2D
 from ..utils.basis import Basis
@@ -98,8 +99,10 @@ class H1Space:
         ids = np.cumsum(unmasked) - 1
         self.ndof = int(unmasked.sum())
         self.dofs = ids[primary].reshape(nel, nb, nb).astype(np.int32)
+        self._set_coords()
 
-        X = mesh.physical_coordinates(basis.nodes, basis.nodes)
+    def _set_coords(self):
+        X = self.mesh.physical_coordinates(self.basis.nodes, self.basis.nodes)
         coords = np.zeros((self.ndof, 2), dtype=np.float64)
         coords[self.dofs.transpose(0, 2, 1).reshape(-1)] = X.reshape(-1, 2)
         self.coords = coords
@@ -108,5 +111,61 @@ class H1Space:
     def n_basis(self) -> int:
         return self.basis.n
 
+    @property
+    def size(self) -> int:
+        return self.ndof
+
     def __repr__(self) -> str:
         return f"H1Space(ndof={self.ndof}, nel={self.mesh.n_elem}, nb={self.basis.n})"
+
+
+class FaceSpace:
+    """Trace space spanned by H1 basis functions supported on a face list.
+
+    Attributes: ``faces`` (nf,) int32 edge ids; ``face_dofs`` (nf, nb) int32,
+    [f, i] -> face-space DOF; ``proj`` (fdof,) int32, face-space DOF -> global
+    H1 DOF (first-occurrence order); ``fdof``.
+    """
+
+    def __init__(self, space: H1Space, faces: np.ndarray):
+        self.h1 = space
+        faces = np.asarray(faces, dtype=np.int32)
+        self.faces = faces
+        mesh = space.mesh
+        nb = space.n_basis
+        el0 = mesh.edge_elements[faces, 0]
+        s0 = mesh.edge_sides[faces, 0]
+        ix, iy = side_to_volume(np.broadcast_to(np.arange(nb), (len(faces), nb)), s0[:, None], nb)
+        gdofs = space.dofs[el0[:, None], iy, ix]  # (nf, nb)
+        proj, inv = first_occurrence_unique(gdofs.ravel())
+        self.proj = proj.astype(np.int32)
+        self.face_dofs = inv.reshape(len(faces), nb).astype(np.int32)
+        self.fdof = len(proj)
+
+    @property
+    def size(self) -> int:
+        return self.fdof
+
+    @property
+    def n_faces(self) -> int:
+        return len(self.faces)
+
+    def _proj(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.as_tensor(self.proj, dtype=torch.int64, device=x.device)
+
+    def restrict(self, x: torch.Tensor) -> torch.Tensor:
+        """Gather a global vector to the face space: y[i] = x[proj[i]]."""
+        return x[..., self._proj(x)]
+
+    def prolong(self, xf: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """y with the face-space vector added at its global DOFs (a new
+        tensor; ``proj`` is unique, so the add order does not matter)."""
+        y = y.clone()
+        y[..., self._proj(y)] += xf
+        return y
+
+    def orth(self, x: torch.Tensor) -> torch.Tensor:
+        """x with its face DOFs zeroed (a new tensor)."""
+        x = x.clone()
+        x[..., self._proj(x)] = 0.0
+        return x

@@ -160,18 +160,19 @@ def test_params_from_jax_round_trip(pair):
 
 def test_run_ddh_unported_options_raise():
     """The transfer path is ported now (it runs); the coarse space and the
-    other config kinds still raise, naming the ROADMAP item."""
+    multi-source config kind still raise, naming the ROADMAP item."""
     res = run_ddh(nx=8, block_size=8, transfer=True, tol=1e-2, device="cpu")
     assert res.success and res.extra["ddh"].use_transfer
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run_ddh(nx=8, coarse="additive", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_config(dataclasses.replace(DDH_STRUCTURED, kind="poisson"), device="cpu")
+        run_config(dataclasses.replace(DDH_STRUCTURED, kind="ddh_multi"), device="cpu")
 
 
 def test_port_imports_no_jax():
     mods = ("examples.drivers", "examples.large_unstructured", "config", "mesh.io",
-            "mesh.refine", "spaces.ensemble", "solvers.ddh", "ops.cuda.wave_cycle")
+            "mesh.refine", "spaces.ensemble", "solvers.ddh", "ops.cuda.wave_cycle",
+            "ops.stiffness", "ops.kron", "ops.structured", "models.poisson", "solvers.gmres")
     code = ("import sys; " + "; ".join(f"import cuddhelmholtz_tpu_torch.{m}" for m in mods)
             + "; assert 'jax' not in sys.modules; assert 'cuddhelmholtz_tpu' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
