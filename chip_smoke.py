@@ -69,10 +69,33 @@ It imports nothing of JAX.  Phases, each raising on failure:
    restarts (JAX on the TPU: 8) and <= 6 refinement steps; the run must
    launch only the sparse grouped kernel, exactly twice phase 9's count
    (the two prepares of one partition; P launches none).
+17. ``run_config(ddh_high_frequency)`` at full size (nx 256, 4,096
+   subdomains) on the transfer path: the probes launch only the sparse
+   kernel in layout (a), a repeated solve none; <= 21 restarts (JAX on the
+   TPU: 19 / 389), plain-cycle residual <= 1.2e-4; then the sparse kernel
+   against the plain cycle on its transfer-probe rows.
+18. ``run_config(ddh_multi_source_8)`` at full size (block GMRES(40), 8 ring
+   sources, transfer path): success, restarts within one of JAX's 7, each
+   source 1 + 41 restarts matvecs, every source's plain-cycle residual <=
+   1.2e-4, a repeated solve launches no kernel.  Prints the warm seconds,
+   sources/s, JAX's ``speedup_vs_sequential`` (8 timed flagship solves of
+   the bench's headline mode against the warm block solve) and a
+   matched-mode baseline: 8 warm single-source solves of the same sources
+   with the block solve's GMRES options.
+19. The direct multi-source path at nx 64 with 4 sources: ``method="block"``
+   launches the sparse kernel exactly (block matvecs + 2) times, each over
+   the 4 x 256 rows, in no more restarts than the slowest lock-step lane;
+   ``method="vmap"`` gives each source the restarts and matvecs of a solo
+   direct solve of it; then one 1,024-row launch against the plain cycle.
+20. The CLI and the bench in subprocesses: ``python -m
+   cuddhelmholtz_tpu_torch.examples.drivers poisson_structured`` prints one
+   JSON line with 14 / 292; ``BENCH_SKIP_CONFIGS=1 python -m
+   cuddhelmholtz_tpu_torch.bench`` prints its JSON line, the headline
+   successful at 18 / 379 (+-1 restart, 1 + 21 per restart).
 Every comparison holds a kernel within 2e-4 of the plain cycle relative to
 the max of u and v, with padded slots exactly 0.  The main-path runs
-(phases 3, 5, 6, 7, 9, 12, 13, 16) must launch the sparse kernel and no
-dense one.
+(phases 3, 5, 6, 7, 9, 12, 13, 16, 17, 18, 19) must launch the sparse kernel
+and no dense one.
 
 Every kernel count is set to 0 just before each main-path run and read just
 after; the ``launches`` of a kernel in the JSON line is the sum over those
@@ -219,9 +242,10 @@ def _masked_normal(rng, mask, dev):
     return torch.from_numpy((rng.standard_normal(mask.shape) * mask).astype(np.float32)).to(dev)
 
 
-def _plain_residual(wc, ddh, b, lam) -> float:
+def _plain_residual(wc, ddh, b, lam):
     """||Y - A(x)|| / ||Y|| with rhs and action on the direct path through
-    the plain cycle."""
+    the plain cycle; for a (K, n) block of sources (one plain cycle over
+    their K ndom rows) the list of each source's."""
     import torch
 
     from cuddhelmholtz_tpu_torch.solvers.ddh import ddh_action, ddh_rhs
@@ -230,7 +254,8 @@ def _plain_residual(wc, ddh, b, lam) -> float:
                 cycle=wc.wave_cycle_plain)
     AX = ddh_action(ddh.params, lam, n_own=ddh.n_own, wh_maxit=ddh.wh_maxit,
                     cycle=wc.wave_cycle_plain)
-    return float(torch.linalg.vector_norm(Y - AX) / torch.linalg.vector_norm(Y))
+    rel = torch.linalg.vector_norm(Y - AX, dim=-1) / torch.linalg.vector_norm(Y, dim=-1)
+    return rel.tolist()
 
 
 def _transfer_run(wc, run, what, max_restarts, jax_matvecs, matvec_slack, gm,
@@ -377,6 +402,23 @@ def _composite_run(wc, run, what, max_restarts, fem, dev):
     if not rel <= 1e-6:
         _fail(f"{what}: generic fp64 relative residual {rel:.3e} > 1e-6")
     return res, launches, dict(op=op, b=b, U=U, fs=fs, a2=a2, af=af, p_ms=p_ms)
+
+
+def _subprocess_json(cmd: list[str], what: str, **env) -> dict:
+    """Run ``cmd`` from the repository root (extra ``env`` variables set);
+    it must exit 0 and print one JSON object as its last stdout line, which
+    is returned."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    p = subprocess.run(cmd, capture_output=True, text=True, timeout=900, cwd=root,
+                       env={**os.environ, **env})
+    lines = p.stdout.strip().splitlines()
+    if p.returncode != 0 or not lines:
+        _fail(f"{what} exited {p.returncode}: {p.stdout[-2000:]} {p.stderr[-2000:]}")
+    if len(lines) != 1:
+        _fail(f"{what} printed {len(lines)} lines on stdout, want one JSON line")
+    return json.loads(lines[0])
 
 
 def main() -> int:
@@ -771,12 +813,203 @@ def main() -> int:
               "<= 6 refinement steps")
     for k in total:
         total[k] += launches[k]
+
+    # --- 17. ddh_high_frequency at full size, transfer path ---------------------
+    from cuddhelmholtz_tpu_torch.config import DDH_HIGH_FREQUENCY as hfcfg
+    from cuddhelmholtz_tpu_torch.config import DDH_MULTI_SOURCE_8 as mcfg
+
+    t17 = time.perf_counter()
+    res17, launches = _transfer_run(
+        wc, lambda: run_config(hfcfg, device=dev), "ddh_high_frequency transfer solve",
+        max_restarts=21, jax_matvecs=389, matvec_slack=2 * (hfcfg.gmres.m + 1), gm=hfcfg.gmres)
+    hddh = res17.extra["ddh"]
+    io_bytes = sum(t.numel() * t.element_size() for t in hddh.io[:5])
+    pre = res17.extra["precompute"]
+    print(f"ddh_high_frequency: {hddh.n_domains} domains, pad {hddh.pad}, nt {hddh.nt}, "
+          f"nu {pre['transfer_nu']}; prepare {pre['transfer_seconds'] + pre['io_seconds']:.3f} s, "
+          f"solve {res17.seconds:.3f} s; io maps {io_bytes} B")
+    if (hddh.n_domains, hddh.shared_S) != (4096, True):
+        _fail(f"ddh_high_frequency: {hddh.n_domains} domains, shared_S {hddh.shared_S}")
+    _only_sparse(launches, "shared", "ddh_high_frequency probes")
+    for k in total:
+        total[k] += launches[k]
+    uidx, _, nu = hddh._domain_groups()
+    c = 2 * hddh._fslot_np.shape[1]
+    ui = torch.as_tensor(uidx, device=dev)
+    hp = hddh.params
+    ph = hp._replace(Ha=hp.Ha[ui].repeat(c, 1), inv_mi=hp.inv_mi[ui].repeat(c, 1))
+    hmask = hddh.gmask[ui].repeat(c, 1)
+    hm = hmask.cpu().numpy()
+    Fh, Gh = _masked_normal(rng, hm, dev), _masked_normal(rng, hm, dev)
+    rows_h = nu * c
+    what = f"layout (a), ddh_high_frequency transfer probe ({nu} x {c} rows, pad {hddh.pad})"
+    res_h, plain_ms_h, _ = _compare(wc, ph, Fh, Gh, hddh.wh_maxit, hmask == 0, what,
+                                    ("sparse",), reps=1, form=hddh.S_sparse)
+    bound_h, by_h = _cycle_bound(hddh.S_sparse, rows_h, rows_h, hddh.pad, hddh.nt,
+                                 hddh.wh_maxit)
+    _rates(what, _cycle_flop(hddh.S_sparse, rows_h, hddh.nt, hddh.wh_maxit), rows_h, hddh.pad,
+           hddh.nt, hddh.wh_maxit, res_h, bound_h, by_h)
+    shapes["sparse_shared"].append({
+        "at": f"ddh_high_frequency transfer probe, {rows_h} rows, pad {hddh.pad}, nt {hddh.nt}",
+        "nnz": _nnz(hddh.S_sparse), "stride": hddh.S_sparse.stride,
+        "form_ms": 1e3 * hddh.sparse_seconds, "ms": res_h["sparse"][1], "plain_ms": plain_ms_h,
+        "bound_ms": bound_h, "bound_by": by_h,
+    })
+    del res17, hddh, hp, ph, Fh, Gh, hmask
+    torch.cuda.empty_cache()
+    print(f"phase 17: {time.perf_counter() - t17:.1f} s")
+
+    # --- 18. ddh_multi_source_8 at full size: block GMRES(40), 8 sources --------
+    from cuddhelmholtz_tpu_torch.bench import HEADLINE_GMRES
+
+    t18 = time.perf_counter()
+    wc.reset_launches()
+    res18 = run_config(mcfg, device=dev)
+    launches = dict(wc.wave_cycle.launches)
+    mddh = res18.extra["ddh"]
+    bs = res18.extra["rhs"]
+    K, gm18 = res18.extra["n_sources"], mcfg.gmres
+    block_opts = {"reorth": False}
+    wc.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out18, _ = mddh.solver(gm18.m, gm18.maxit, gm18.tol, gmres_opts=block_opts, block=True)(bs)
+    torch.cuda.synchronize()
+    warm18 = time.perf_counter() - t0
+    again = sum(wc.wave_cycle.launches.values())
+    # matched mode: the same sources one at a time, the block solve's GMRES options
+    solo = mddh.solver(gm18.m, gm18.maxit, gm18.tol, gmres_opts=block_opts)
+    solo(bs[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solo_counts = [(o.num_iter, o.num_matvec) for o in (solo(bs[k])[0] for k in range(K))]
+    torch.cuda.synchronize()
+    seq18 = time.perf_counter() - t0
+    # JAX's speedup_vs_sequential: K of the bench headline's timed solves
+    b_flag = helmholtz_rhs(mddh.space, lambda xy: point_sources(xy, mcfg.omega),
+                           dtype=torch.float32).to(dev)
+    head = mddh.solver(20, 100, 1e-4, gmres_opts=HEADLINE_GMRES)
+    head(b_flag)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hout, _ = head(b_flag * (1.0 + 1e-6))
+    torch.cuda.synchronize()
+    head_s = time.perf_counter() - t0
+    per = res18.extra["per_source_matvecs"]
+    pre = res18.extra["precompute"]
+    print(f"ddh_multi_source_8: success={res18.success} restarts={res18.num_iter} per-source "
+          f"matvecs {per}; solve {res18.seconds:.3f} s, warm {warm18:.3f} s ({K / warm18:.2f} "
+          f"sources/s), prepare {pre['transfer_seconds'] + pre['io_seconds']:.3f} s; launches "
+          f"during run {launches}, during the repeated solve {again}; matched-mode sequential: "
+          f"{K} solves in {seq18:.3f} s ({seq18 / warm18:.2f}x the block solve), counts "
+          f"{solo_counts}; headline-mode flagship solve {head_s:.3f} s ({hout.num_iter} / "
+          f"{hout.num_matvec}): speedup_vs_sequential {K * head_s / warm18:.2f}")
+    if not res18.success or abs(res18.num_iter - 7) > 1:
+        _fail(f"ddh_multi_source_8: success={res18.success}, {res18.num_iter} restarts "
+              "(JAX 7 +-1)")
+    if per != [1 + (gm18.m + 1) * res18.num_iter] * K:
+        _fail(f"ddh_multi_source_8: per-source matvecs {per}, want 1 + 41 x restarts")
+    if again != 0:
+        _fail(f"ddh_multi_source_8: the repeated solve launched {again} kernels")
+    _only_sparse(launches, "shared", "ddh_multi_source_8 probes")
+    for k in total:
+        total[k] += launches[k]
+    Us = res18.solution
+    if Us.shape != (K, 2 * res18.extra["ndof"]) or not np.isfinite(Us).all():
+        _fail(f"ddh_multi_source_8: solutions of shape {Us.shape} or non-finite values")
+    lam18 = res18.extra["lam"]
+    resids = _plain_residual(wc, mddh, bs, lam18)
+    print(f"ddh_multi_source_8 plain-cycle check per source: {[f'{r:.3e}' for r in resids]}")
+    if not max(resids) <= 1.2 * gm18.tol:
+        _fail(f"ddh_multi_source_8: plain-cycle residuals {resids} (> {1.2 * gm18.tol:.2e})")
+    del res18, mddh, bs, lam18, solo, head
+    torch.cuda.empty_cache()
+    print(f"phase 18: {time.perf_counter() - t18:.1f} s")
+
+    # --- 19. the direct multi-source path at nx 64, 4 sources ------------------
+    from cuddhelmholtz_tpu_torch.examples.drivers import run_ddh_multi_source
+    from cuddhelmholtz_tpu_torch.solvers.ddh import _rows
+
+    t19 = time.perf_counter()
+    small = dict(nx=64, n_sources=4, m=20, maxit=100, tol=1e-4, transfer=False, device=dev)
+    wc.reset_launches()
+    rb = run_ddh_multi_source(method="block", **small)
+    lb = dict(wc.wave_cycle.launches)
+    wc.reset_launches()
+    rv = run_ddh_multi_source(method="vmap", **small)
+    lv = dict(wc.wave_cycle.launches)
+    vddh, vbs, K19 = rv.extra["ddh"], rv.extra["rhs"], rv.extra["n_sources"]
+    solo = vddh.solver(small["m"], small["maxit"], small["tol"])
+    solo_counts = [(o.num_iter, o.num_matvec) for o in (solo(vbs[k])[0] for k in range(K19))]
+    block_mv = rb.num_matvec  # block operator calls: one per source's matvec
+    print(f"direct multi-source (nx 64, {K19} sources, {vddh.n_domains} domains): block "
+          f"{rb.num_iter} restarts / {block_mv} matvecs per source, {rb.seconds:.3f} s, "
+          f"launches {lb}; vmap restarts {rv.extra['per_source_restarts']} matvecs "
+          f"{rv.extra['per_source_matvecs']}, {rv.seconds:.3f} s, launches {lv}; solo "
+          f"direct solves {solo_counts}")
+    if not (rb.success and rv.success):
+        _fail("direct multi-source: a solve did not converge")
+    if lb != {**dict.fromkeys(lb, 0), "sparse_shared": block_mv + 2}:
+        _fail(f"direct multi-source block: launches {lb}, want {block_mv + 2} sparse layout-(a) "
+              "launches (one per block matvec, rhs and postprocess) and no other")
+    if rb.num_iter > max(rv.extra["per_source_restarts"]):
+        _fail(f"direct multi-source: block took {rb.num_iter} restarts, more than the slowest "
+              f"lock-step lane's {max(rv.extra['per_source_restarts'])}")
+    if solo_counts != list(zip(rv.extra["per_source_restarts"], rv.extra["per_source_matvecs"])):
+        _fail(f"direct multi-source vmap: lanes {rv.extra['per_source_restarts']} / "
+              f"{rv.extra['per_source_matvecs']}, solo solves {solo_counts}")
+    _only_sparse(lv, "shared", "direct multi-source vmap")
+    for k in total:
+        total[k] += lb[k] + lv[k]
+    pk = _rows(vddh.params, K19)
+    kmask = vddh.gmask.repeat(K19, 1)
+    km = kmask.cpu().numpy()
+    Fk, Gk = _masked_normal(rng, km, dev), _masked_normal(rng, km, dev)
+    rows_k = K19 * vddh.n_domains
+    what = f"layout (a), direct multi-source block matvec ({K19} x {vddh.n_domains} rows)"
+    res_k, plain_ms_k, _ = _compare(wc, pk, Fk, Gk, vddh.wh_maxit, kmask == 0, what,
+                                    ("sparse",), form=vddh.S_sparse)
+    bound_k, by_k = _cycle_bound(vddh.S_sparse, rows_k, rows_k, vddh.pad, vddh.nt,
+                                 vddh.wh_maxit)
+    _rates(what, _cycle_flop(vddh.S_sparse, rows_k, vddh.nt, vddh.wh_maxit), rows_k, vddh.pad,
+           vddh.nt, vddh.wh_maxit, res_k, bound_k, by_k)
+    shapes["sparse_shared"].append({
+        "at": f"direct multi-source matvec, {K19} x {vddh.n_domains} rows, pad {vddh.pad}, "
+              f"nt {vddh.nt}", "nnz": _nnz(vddh.S_sparse), "stride": vddh.S_sparse.stride,
+        "form_ms": 1e3 * vddh.sparse_seconds, "ms": res_k["sparse"][1], "plain_ms": plain_ms_k,
+        "bound_ms": bound_k, "bound_by": by_k,
+    })
+    del rb, rv, vddh, vbs, solo, pk, Fk, Gk
+    torch.cuda.empty_cache()
+    print(f"phase 19: {time.perf_counter() - t19:.1f} s")
+
+    # --- 20. the CLI and the bench in subprocesses -----------------------------
+    t20 = time.perf_counter()
+    cli = _subprocess_json([sys.executable, "-m", "cuddhelmholtz_tpu_torch.examples.drivers",
+                            "poisson_structured"], "drivers CLI")
+    print(f"drivers CLI: {json.dumps(cli)}")
+    if (cli["config"], cli["success"], cli["iters"], cli["matvecs"]) != (
+            "poisson_structured", True, 14, 292):
+        _fail(f"drivers CLI: {cli}; want poisson_structured successful at 14 / 292")
+    rec = _subprocess_json([sys.executable, "-m", "cuddhelmholtz_tpu_torch.bench"], "bench",
+                           BENCH_SKIP_CONFIGS="1")
+    ex = rec["extras"]
+    print(f"bench (no config rows): headline {ex['gmres_restarts']} / {ex['gmres_matvecs']} in "
+          f"{rec['solve_seconds']:.4f} s, value {rec['value']:.4e} nnz/s; executed wave-cycle "
+          f"action {ex['wave_cycle_ms_per_apply']:.3f} ms; kron stiffness apply "
+          f"{ex['stiffness_apply_us']:.2f} us; device {ex['device']}")
+    r = ex["gmres_restarts"]
+    if abs(r - 18) > 1 or ex["gmres_matvecs"] != 1 + 21 * r:
+        _fail(f"bench headline {r} / {ex['gmres_matvecs']}; want 18 / 379 (+-1 restart)")
+    print(f"phase 20: {time.perf_counter() - t20:.1f} s")
     print(f"kernel launches over the main-path runs: {total}")
     for row in (r for rows in shapes.values() for r in rows):
-        print(f"sparse kernel at {row['at']}: {row['ms']:.3f} ms against {row['dense']} "
-              f"{row['dense_ms']:.3f} ms ({row['dense_ms'] / row['ms']:.2f}x), bound "
-              f"{row['bound_ms']:.3f} ms ({row['bound_by']}, {row['bound_ms'] / row['ms']:.1%}"
-              f" of it), nnz {row['nnz']} (stride {row['stride']}), form {row['form_ms']:.3f} ms")
+        dense = (f" against {row['dense']} {row['dense_ms']:.3f} ms "
+                 f"({row['dense_ms'] / row['ms']:.2f}x)" if "dense" in row else "")
+        print(f"sparse kernel at {row['at']}: {row['ms']:.3f} ms{dense}, plain "
+              f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms ({row['bound_by']}, "
+              f"{row['bound_ms'] / row['ms']:.1%} of it), nnz {row['nnz']} (stride "
+              f"{row['stride']}), form {row['form_ms']:.3f} ms")
 
     def entry(name, source, line, key, err, kms, pms, bound, by, **extra):
         return {
@@ -788,7 +1021,8 @@ def main() -> int:
 
     print(json.dumps({"kernels": [
         entry("wave_cycle sparse (a) shared S", "wave_cycle_sparse.cu", 69, "sparse_shared",
-              max(res_a["sparse"][0], res_sa["sparse"][0], res_s176["sparse"][0]),
+              max(res_a["sparse"][0], res_sa["sparse"][0], res_s176["sparse"][0],
+                  res_h["sparse"][0], res_k["sparse"][0]),
               res_a["sparse"][1], plain_ms, bound_a, by_a, nnz=nnz_a, stride=form_a.stride, form_ms=form_ms_a,
               shapes=shapes["sparse_shared"]),
         entry("wave_cycle sparse (b) grouped S", "wave_cycle_sparse.cu", 201, "sparse_grouped",

@@ -1,12 +1,10 @@
 """Problem/solver configuration dataclasses.
 
 Counterpart of ``cuddhelmholtz_tpu/config.py`` (copied: importing the JAX
-module would import jax).  Seven entries are carried with the JAX fields and
-values: ``poisson_structured``, ``helmholtz_unpreconditioned``,
-``ddh_structured``, ``ddh_unstructured_square``, ``ddh_512_block32``,
-``helmholtz_ddh_1e6`` and ``helmholtz_ddh_unstructured_1e6``.  The JAX
-package's ``coarse``, ``rhs_split`` and ``n_sources`` fields come with the
-code that reads them.
+module would import jax).  ``BASELINE_CONFIGS`` holds the JAX package's nine
+entries in its order and with its values; each also has a module constant
+(``DDH_STRUCTURED``, ...).  The JAX package's ``coarse`` and ``rhs_split``
+fields come with the code that reads them.
 """
 
 from __future__ import annotations
@@ -25,7 +23,7 @@ class GmresConfig:
 @dataclass(frozen=True)
 class ProblemConfig:
     name: str
-    kind: str = "ddh"  # "poisson" | "helmholtz" | "ddh" | "helmholtz_ddh"
+    kind: str = "ddh"  # "poisson" | "helmholtz" | "ddh" | "helmholtz_ddh" | "ddh_multi"
     nx: int = 128
     deg: int = 3
     mesh: str = "uniform_rect"  # or "unstructured_square"
@@ -35,6 +33,8 @@ class ProblemConfig:
     # precompute the per-subdomain trace-transfer matrices (and, on a GPU,
     # the io maps): the production DDH matvec
     transfer: bool = True
+    # kind="ddh_multi": right-hand sides solved in one batched solve
+    n_sources: int = 8
     # DDH subdomain side length in DOFs
     block_size: int = 16
 
@@ -73,6 +73,14 @@ DDH_UNSTRUCTURED_SQUARE = ProblemConfig(
     gmres=GmresConfig(m=20, maxit=100, tol=1e-4),
 )
 
+# 591,361 DOFs at twice the reference frequency: 4,096 subdomains of 169
+# DOFs, as the flagship's
+DDH_HIGH_FREQUENCY = ProblemConfig(
+    name="ddh_high_frequency",
+    nx=256,  # omega = 2*pi*25.6
+    gmres=GmresConfig(m=20, maxit=100, tol=1e-4),
+)
+
 # 2.4M DOFs at 4x the reference frequency with 32-DOF subdomain blocks
 # (4,096 subdomains of 625 DOFs, pad 632): the dense stiffness (1.6 MB)
 # exceeds a block's shared memory, its non-zeros (58 KB) do not, so its
@@ -102,4 +110,26 @@ HELMHOLTZ_DDH_UNSTRUCTURED_1E6 = ProblemConfig(
     mesh="unstructured_square",
     n_domains=8,
     gmres=GmresConfig(m=20, maxit=100, tol=1e-6),
+)
+
+# 8 ring sources in one batched substructured solve; m=40 for the block
+# solver, whose shared space of m*K directions cuts the restarts
+DDH_MULTI_SOURCE_8 = ProblemConfig(
+    name="ddh_multi_source_8",
+    kind="ddh_multi",
+    nx=128,
+    n_sources=8,
+    gmres=GmresConfig(m=40, maxit=100, tol=1e-4),
+)
+
+BASELINE_CONFIGS = (
+    POISSON_STRUCTURED,
+    HELMHOLTZ_UNPRECONDITIONED,
+    DDH_STRUCTURED,
+    DDH_UNSTRUCTURED_SQUARE,
+    DDH_HIGH_FREQUENCY,
+    DDH_512_BLOCK32,
+    HELMHOLTZ_DDH_1E6,
+    HELMHOLTZ_DDH_UNSTRUCTURED_1E6,
+    DDH_MULTI_SOURCE_8,
 )

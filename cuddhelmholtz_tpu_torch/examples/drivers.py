@@ -1,16 +1,23 @@
 """The example drivers.
 
 Counterpart of ``run_config``, ``run_poisson``, ``run_helmholtz``,
-``run_ddh``, ``run_helmholtz_ddh``, ``_make_matvec32``, ``write_history``,
-``point_sources``, ``wave_speed_coeff`` and ``DriverResult`` in
+``run_ddh``, ``run_ddh_multi_source``, ``run_helmholtz_ddh``,
+``_make_matvec32``, ``write_history``, ``point_sources``,
+``wave_speed_coeff``, ``DriverResult`` and the CLI ``main`` in
 ``cuddhelmholtz_tpu/examples/drivers.py``.  ``run_ddh`` runs the direct path
 (every lambda-GMRES matvec is a full WaveHoltz cycle) or, with
 ``transfer=True``, the precomputed trace-transfer path;
-``run_helmholtz_ddh`` solves the coupled Helmholtz system to 1e-6 with
-FGMRES right-preconditioned by one bounded DDH solve per step.  The setup
-(functionals, coefficient projection) runs on the host in float64; the
-solves run on ``device``, the card unless the caller asks for the CPU.
-Multi-source solves (``ddh_multi``) are not ported yet.
+``run_ddh_multi_source`` solves K ring sources in one batched solve (block
+GMRES or lock-step GMRES); ``run_helmholtz_ddh`` solves the coupled
+Helmholtz system to 1e-6 with FGMRES right-preconditioned by one bounded DDH
+solve per step.  The setup (functionals, coefficient projection) runs on the
+host in float64; the solves run on ``device``, the card unless the caller
+asks for the CPU.
+
+    python -m cuddhelmholtz_tpu_torch.examples.drivers <config> [field=value ...]
+
+runs a named config of ``config.BASELINE_CONFIGS`` on the card and prints
+one JSON record.
 """
 
 from __future__ import annotations
@@ -89,6 +96,7 @@ def run_config(cfg, **overrides) -> DriverResult:
     driver.
     """
     device = overrides.pop("device", "cuda")
+    # driver-level (non-config) arguments for the kinds that take them
     fwd = {k: overrides.pop(k) for k in ("measure_warm",) if k in overrides}
     gm = {k: overrides.pop(k) for k in ("m", "maxit", "tol") if k in overrides}
     if gm:
@@ -108,14 +116,14 @@ def run_config(cfg, **overrides) -> DriverResult:
             transfer=cfg.transfer, mesh=mesh, n_domains=cfg.n_domains, device=device, **fwd,
         )
     if cfg.kind == "ddh_multi":
-        raise NotImplementedError(
-            "config kind 'ddh_multi': multi-source solves are not ported yet "
-            "(ROADMAP queue 1, item 14)"
+        return run_ddh_multi_source(
+            nx=cfg.nx, deg=cfg.deg, m=g.m, maxit=g.maxit, tol=g.tol, n_sources=cfg.n_sources,
+            transfer=cfg.transfer, device=device, **fwd,
         )
     if cfg.kind != "ddh":
         raise ValueError(f"unknown config kind: {cfg.kind}")
     kw = dict(nx=cfg.nx, deg=cfg.deg, m=g.m, maxit=g.maxit, tol=g.tol,
-              wh_maxit=cfg.wh_maxit, transfer=cfg.transfer, device=device)
+              wh_maxit=cfg.wh_maxit, transfer=cfg.transfer, device=device, **fwd)
     if mesh is not None:
         labels, _ = coordinate_bisection_labels(mesh, cfg.n_domains or 8)
         return run_ddh(mesh=mesh, element_labels=labels, **kw)
@@ -191,7 +199,8 @@ def run_helmholtz(
     host-loop solver ``gmres_host``, which is not ported yet."""
     if max_seconds is not None or verbose:
         raise NotImplementedError(
-            "max_seconds/verbose: gmres_host is not ported yet (ROADMAP queue 1, item 12)"
+            "max_seconds/verbose: the host-loop GMRES gmres_host is not ported yet "
+            "(ROADMAP queue 1)"
         )
     device = check_device(device)
     omega = 2 * np.pi * nx / 10
@@ -243,6 +252,8 @@ def run_ddh(
     block_size: int = 16,
     coarse: str | None = None,
     omega: float | None = None,
+    out_dir: str | None = None,
+    measure_warm: bool = False,
     *,
     device="cuda",
 ) -> DriverResult:
@@ -258,11 +269,15 @@ def run_ddh(
     solve (rhs, lambda-GMRES, postprocess), synchronised on the device;
     ``extra["setup_seconds"]`` includes ``prepare``, whose stats are
     ``extra["precompute"]``.  ``extra["lam"]`` is the substructured solution
-    and ``extra["ddh"]`` the operator.
+    and ``extra["ddh"]`` the operator.  ``measure_warm`` solves once more on
+    the prepared operator and records its time (``extra["warm_seconds"]``;
+    the results are the first solve's).  ``out_dir`` receives the
+    coordinates, the solution and the residual history in the reference's
+    formats.
     """
     if coarse:
         raise NotImplementedError(
-            "coarse: the two-level coarse space is not ported yet (ROADMAP queue 1, item 15)"
+            "coarse: the two-level coarse space is not ported yet (ROADMAP queue 1)"
         )
     device = check_device(device)
     if omega is None:
@@ -292,15 +307,20 @@ def run_ddh(
     setup_s = time.perf_counter() - t_setup
 
     solve = ddh.solver(m, maxit, tol)
-    _sync(device)
-    t0 = time.perf_counter()
-    out, U = solve(b)
-    _sync(device)
-    dt = time.perf_counter() - t0
+    out, U, dt = _timed_solve(solve, b, device)
+    warm = {}
+    if measure_warm:
+        warm["warm_seconds"] = _timed_solve(solve, b, device)[2]
+    U = U.cpu().numpy()
+    res_norm = out.res_norm[: out.n_hist].cpu().numpy()
+    if out_dir:
+        to_file(f"{out_dir}/xy.0000", fem.coords.T)
+        to_file(f"{out_dir}/ddh.0000", U)
+        write_history(f"{out_dir}/ddh_{nx}_{deg}.txt", res_norm)
     return DriverResult(
-        solution=U.cpu().numpy(),
+        solution=U,
         coords=fem.coords,
-        res_norm=out.res_norm[: out.n_hist].cpu().numpy(),
+        res_norm=res_norm,
         num_iter=out.num_iter,
         num_matvec=out.num_matvec,
         seconds=dt,
@@ -315,6 +335,143 @@ def run_ddh(
             "precompute": pstats,
             "ddh": ddh,
             "lam": out.x,
+            **warm,
+        },
+    )
+
+
+def _timed_solve(solve, b: torch.Tensor, device: torch.device):
+    """(GMRES result, solution, seconds) of ``solve(b)``, synchronised on
+    the device."""
+    _sync(device)
+    t0 = time.perf_counter()
+    out, U = solve(b)
+    _sync(device)
+    return out, U, time.perf_counter() - t0
+
+
+def ring_sources(fem, omega: float, n_sources: int, radius: float = 0.5) -> torch.Tensor:
+    """(n_sources, 2 ndof) float64 forcings: Gaussians of width 1/omega
+    centred at n_sources equally spaced points of the circle of ``radius``."""
+    s = omega * omega
+    th = 2 * np.pi * np.arange(n_sources) / n_sources
+    centers = radius * np.stack([np.cos(th), np.sin(th)], axis=1)
+
+    def source(cx, cy):
+        def f(xy):
+            r = (xy[..., 0] - cx) ** 2 + (xy[..., 1] - cy) ** 2
+            return s / math.pi * torch.exp(-s * r)
+
+        return helmholtz_rhs(fem, f)
+
+    return torch.stack([source(cx, cy) for cx, cy in centers])
+
+
+def run_ddh_multi_source(
+    nx: int = 128,
+    deg: int = 3,
+    m: int = 20,
+    maxit: int = 100,
+    tol: float = 1e-4,
+    n_sources: int = 8,
+    source_radius: float = 0.5,
+    transfer: bool = True,
+    shard_sources: bool = False,
+    out_dir: str | None = None,
+    measure_warm: bool = False,
+    method: str = "block",
+    gmres_opts: dict | None = None,
+    *,
+    device="cuda",
+) -> DriverResult:
+    """Solve the DDH example for ``n_sources`` right-hand sides (Gaussians on
+    a ring of ``source_radius``) in one batched substructured solve.
+
+    ``method="block"`` (the default, with ``gmres_opts={"reorth": False}``)
+    runs ``block_gmres``: one shared block-Krylov space of m K directions
+    per restart.  ``method="vmap"`` runs ``gmres_lockstep``: each source its
+    own GMRES(m), as a solo solve, to the slowest source's restart count.
+    Either way every rhs, matvec and postprocess is one apply over the K
+    ndom subdomain rows: one batched transfer product on the transfer path,
+    one wave-cycle launch on the direct path (``transfer=False``).
+
+    The top-level ``res_norm``, ``num_iter`` and ``num_matvec`` describe
+    source 0; ``success`` holds when every source converged.  ``extra`` has
+    the per-source counts and histories, ``lam`` (K, 2 n_lambda) and, with
+    ``measure_warm``, the time of a second solve (``warm_seconds``).
+    ``shard_sources`` (the source axis over several devices) is not ported.
+    """
+    if shard_sources:
+        raise NotImplementedError(
+            "shard_sources: multi-device solves are not ported yet (ROADMAP queue 1)"
+        )
+    if method not in ("block", "vmap"):
+        raise ValueError("method must be 'block' or 'vmap'")
+    device = check_device(device)
+    omega = 2 * np.pi * nx / 10
+    mesh = Mesh2D.uniform_rect(nx, -1.0, 1.0, nx, -1.0, 1.0)
+    fem = H1Space(mesh, Basis(deg + 1))
+    b_a = linear_functional(fem, wave_speed_coeff)
+    a_nodal = apply_diag_inv_mass(make_diag_inv_mass_op(fem), b_a).numpy()
+    bs = ring_sources(fem, omega, n_sources, source_radius).to(device)
+
+    t_setup = time.perf_counter()
+    ddh = DDH(omega, a_nodal, fem, nx=nx, ny=nx, device=device)
+    pstats = {}
+    if transfer:
+        pstats = ddh.prepare(want_io=device.type == "cuda")
+    setup_s = time.perf_counter() - t_setup
+
+    if gmres_opts is None and method == "block":
+        # single-pass CGS: each new block is orthonormalised by the block QR
+        gmres_opts = {"reorth": False}
+    solve = ddh.solver(m, maxit, tol, gmres_opts=gmres_opts, block=method == "block",
+                       vmapped=method == "vmap")
+    outs, Us, dt = _timed_solve(solve, bs, device)
+    warm = {}
+    if measure_warm:
+        warm["warm_seconds"] = _timed_solve(solve, bs, device)[2]
+    Us = Us.cpu().numpy()
+    if method == "block":
+        # one shared space: one restart count, K matvecs per block operator call
+        hists = [outs.res_norm[: outs.n_hist, k].cpu().numpy() for k in range(n_sources)]
+        per_restarts = [outs.num_iter] * n_sources
+        per_matvecs = [outs.num_matvec // n_sources] * n_sources
+    else:
+        n_hist = outs.n_hist.tolist()
+        hists = [outs.res_norm[k, : n_hist[k]].cpu().numpy() for k in range(n_sources)]
+        per_restarts = outs.num_iter.tolist()
+        per_matvecs = outs.num_matvec.tolist()
+    if out_dir:
+        to_file(f"{out_dir}/xy.0000", fem.coords.T)
+        for k in range(n_sources):
+            to_file(f"{out_dir}/ddh_src{k:02d}.0000", Us[k])
+            write_history(f"{out_dir}/ddh_src{k:02d}_{nx}_{deg}.txt", hists[k])
+    return DriverResult(
+        solution=Us,
+        coords=fem.coords,
+        res_norm=hists[0],
+        num_iter=per_restarts[0],
+        num_matvec=per_matvecs[0],
+        seconds=dt,
+        success=bool(outs.success.all()),
+        extra={
+            "omega": omega,
+            "ndof": fem.ndof,
+            "n_sources": n_sources,
+            "method": method,
+            "per_source_matvecs": per_matvecs,
+            "per_source_restarts": per_restarts,
+            "max_matvecs": int(np.max(per_matvecs)),
+            "histories": hists,
+            "n_lambda": ddh.size,
+            "n_domains": ddh.n_domains,
+            "setup_seconds": setup_s,
+            "precompute": pstats,
+            "ddh": ddh,
+            "lam": outs.x,
+            "rhs": bs,
+            **warm,
         },
     )
 
@@ -556,3 +713,49 @@ def run_helmholtz_ddh(
         success=success,
         extra=extra,
     )
+
+
+def cli_record(name: str, res: DriverResult) -> dict:
+    """The CLI's JSON record of one run (the JAX package's keys); the
+    optional keys appear when the driver records them."""
+    rec = {
+        "config": name,
+        "success": bool(res.success),
+        "iters": int(res.num_iter),
+        "matvecs": int(res.num_matvec),
+        "seconds": res.seconds,
+        "final_rel_res": float(res.res_norm[-1] / res.res_norm[0]),
+    }
+    for k in ("warm_seconds", "compile_seconds", "refine_steps", "stagnated", "setup_seconds"):
+        if k in res.extra:
+            rec[k] = res.extra[k]
+    return rec
+
+
+def main(argv=None, *, device="cuda") -> int:
+    """CLI: run a named config of ``config.BASELINE_CONFIGS`` and print one
+    JSON record (the JAX package's keys).
+
+    python -m cuddhelmholtz_tpu_torch.examples.drivers <name> [field=value ...]
+    """
+    import json
+    import sys
+
+    from ..config import BASELINE_CONFIGS
+
+    argv = sys.argv[1:] if argv is None else argv
+    by_name = {c.name: c for c in BASELINE_CONFIGS}
+    if not argv or argv[0] not in by_name:
+        print(f"usage: drivers <{'|'.join(by_name)}> [nx=..] [m=..] [maxit=..] [tol=..]")
+        return 1
+    cfg = by_name[argv[0]]
+    overrides = {}
+    for kv in argv[1:]:
+        k, v = kv.split("=", 1)
+        overrides[k] = float(v) if k == "tol" else int(v)
+    print(json.dumps(cli_record(cfg.name, run_config(cfg, device=device, **overrides))))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

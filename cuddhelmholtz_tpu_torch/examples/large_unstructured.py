@@ -90,7 +90,7 @@ def run_case(name: str, mesh, n_domains: int, deg: int, omega: float, tol: float
     """Solve one case and return its record."""
     if coarse:
         raise NotImplementedError(
-            "coarse: the two-level coarse space is not ported yet (ROADMAP queue 1, item 15)"
+            "coarse: the two-level coarse space is not ported yet (ROADMAP queue 1)"
         )
     res = solve_case(mesh, n_domains, deg, omega, tol, device=device)
     rec = case_record(name, mesh, res)

@@ -41,10 +41,17 @@ import torch
 from torch import nn
 
 from ..ops.cuda.wave_cycle import ROWS_PER_BLOCK, WH_MAXIT, SparseS, sparse_form, wave_cycle
-from ..ops.mass import assemble, assembly_table, lumped_mass_diagonal
+from ..ops.mass import assembly_table, lumped_mass_diagonal
 from ..spaces.ensemble import EnsembleSpace, structured_labels
 from ..spaces.h1 import H1Space
-from .gmres import GmresResult, gmres
+from .gmres import (
+    BlockGmresResult,
+    GmresResult,
+    LockstepResult,
+    block_gmres,
+    gmres,
+    gmres_lockstep,
+)
 
 PAD_MULTIPLE = 8
 # probe columns go through the cycle in chunks of at most this many state
@@ -544,8 +551,16 @@ class DDH(nn.Module):
 
     def _cycle(self, params: DDHParams, F, G, wh_maxit: int):
         """The wave cycle on this operator's S; on the card with its sparse
-        form (the CPU runs the plain cycle, which does not read it)."""
-        return wave_cycle(params, F, G, wh_maxit, sparse=self.S_sparse if F.is_cuda else None)
+        form (the CPU runs the plain cycle, which does not read it).  F, G
+        hold the rows of K sources (K ndom rows); a per-domain S then runs
+        its form repeated K times."""
+        form = None
+        if F.is_cuda:
+            form = self.S_sparse
+            reps = F.shape[0] // self.n_domains
+            if params.S.dim() == 3 and reps > 1:
+                form = form.take(torch.arange(self.n_domains, device=F.device).repeat(reps))
+        return wave_cycle(params, F, G, wh_maxit, sparse=form)
 
     # ------------------------------------------------------ transfer / io
 
@@ -749,73 +764,146 @@ class DDH(nn.Module):
             stats.update(self.io_stats)
         return stats
 
-    def solver(self, m: int, maxit: int, tol: float):
-        """The whole solve, b -> (GmresResult, U): rhs, lambda-GMRES(m),
-        postprocess."""
+    def solver(self, m: int, maxit: int, tol: float, gmres_opts: dict | None = None,
+               block: bool = False, vmapped: bool = False, coarse: str | None = None):
+        """The whole solve: rhs, lambda-GMRES(m), postprocess.
+
+        ``gmres_opts`` go to the GMRES (``deferred``, ``reorth``).  By default
+        the solver maps one forcing b to (``GmresResult``, U).  With ``block``
+        or ``vmapped`` it maps a (K, 2 g_ndof) block of K forcings to the
+        (K, 2 g_ndof) solutions: ``block`` runs ``block_gmres`` (one shared
+        block-Krylov space; ``reorth`` is its one option), ``vmapped`` runs
+        ``gmres_lockstep`` (each source its own space, as a solo solve).
+        Each batched rhs, matvec and postprocess is one apply over the K
+        ndom subdomain rows.  The coarse space is not ported yet: a
+        ``coarse`` solver raises."""
+        if coarse:
+            if block:
+                raise ValueError("block=True does not compose with coarse yet")
+            raise NotImplementedError(
+                "coarse: the two-level coarse space is not ported yet (ROADMAP queue 1)"
+            )
+        opts = dict(gmres_opts or {})
+        if block:
+            def run_block(bs: torch.Tensor) -> tuple[BlockGmresResult, torch.Tensor]:
+                out = block_gmres(self.action, self.rhs(bs), m=m, maxit=maxit, tol=tol, **opts)
+                return out, self.postprocess(out.x, bs)
+
+            return run_block
+        if vmapped:
+            def run_lockstep(bs: torch.Tensor) -> tuple[LockstepResult, torch.Tensor]:
+                out = gmres_lockstep(self.action, self.rhs(bs), m=m, maxit=maxit, tol=tol, **opts)
+                return out, self.postprocess(out.x, bs)
+
+            return run_lockstep
 
         def run(b: torch.Tensor) -> tuple[GmresResult, torch.Tensor]:
-            Y = self.rhs(b)
-            out = gmres(self.action, Y, m=m, maxit=maxit, tol=tol)
+            out = gmres(self.action, self.rhs(b), m=m, maxit=maxit, tol=tol, **opts)
             return out, self.postprocess(out.x, b)
 
         return run
 
 
 # ---------------------------------------------------------------- the apply
+#
+# Every apply takes one vector or a (K, n) block of K sources (``DDH.solver``
+# with ``block`` or ``vmapped``).  Internally the sources lead: subdomain
+# arrays are (K, ndom, pad) and face arrays (K, ndom, pf), so each product,
+# roll, gather and scatter runs once over the K * ndom rows.
+
+
+def _block(v: torch.Tensor) -> torch.Tensor:
+    """A vector as a block of one source; a (K, n) block as it is."""
+    return v[None] if v.dim() == 1 else v
+
+
+def _unblock(out: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """The apply's (K, n) result in the shape of its input ``like``."""
+    return out[0] if like.dim() == 1 else out
+
+
+def _rows(params: DDHParams, K: int) -> DDHParams:
+    """The cycle's per-row operands for K sources stacked source-major
+    (row k * ndom + d): Ha and inv_mi, and a per-domain S, repeated K times."""
+    if K == 1:
+        return params
+    S = params.S.repeat(K, 1, 1) if params.S.dim() == 3 else params.S
+    return params._replace(S=S, Ha=params.Ha.repeat(K, 1), inv_mi=params.inv_mi.repeat(K, 1))
 
 
 def _read_traces(params: DDHParams, lam: torch.Tensor, n_lambda: int, n_own: int):
-    """Own-side compact traces (lam0, mu0): masked reshapes of lam."""
+    """Own-side compact traces (lam0, mu0), each (K, ndom, pf): masked
+    reshapes of the rows of ``lam`` (K, 2 n_lambda)."""
     ndom, pf = params.B0.shape
-    lam0 = lam[:n_own].reshape(ndom, pf)
-    mu0 = lam[n_lambda:n_lambda + n_own].reshape(ndom, pf)
+    K = lam.shape[0]
+    lam0 = lam[:, :n_own].reshape(K, ndom, pf)
+    mu0 = lam[:, n_lambda:n_lambda + n_own].reshape(K, ndom, pf)
     has = params.B0 >= 0
     return torch.where(has, lam0, 0.0), torch.where(has, mu0, 0.0)
 
 
 def _forcing(params: DDHParams, x, lam, g_ndof: int, n_own: int | None = None):
-    """Gather forcing and lambda traces into subdomain slots: F, G (ndom, pad)
-    and the compact own traces lam0, mu0 (ndom, pf)."""
+    """Gather forcing and lambda traces into subdomain slots: F, G (K, ndom,
+    pad) and the compact own traces lam0, mu0 (K, ndom, pf), for the rows of
+    ``x`` (K, 2 g_ndof) and ``lam`` (K, 2 n_lambda); one of them may be
+    None."""
     gI = params.gI.clamp_min(0)
+    ndom, pad = params.gmask.shape
+    K = (x if x is not None else lam).shape[0]
     if x is not None:
         x = x.to(params.gmask.dtype)
-        F = params.F_weight * x[gI]
-        G = params.F_weight * x[g_ndof + gI]
+        F = params.F_weight * x[:, gI]
+        G = params.F_weight * x[:, g_ndof + gI]
     else:
-        F = torch.zeros_like(params.gmask)
-        G = torch.zeros_like(params.gmask)
-    if lam is not None and lam.shape[0] > 0:
-        lam0, mu0 = _read_traces(params, lam, lam.shape[0] // 2, n_own)
+        F = params.gmask.new_zeros((K, ndom, pad))
+        G = params.gmask.new_zeros((K, ndom, pad))
+    if lam is not None and lam.shape[1] > 0:
+        lam0, mu0 = _read_traces(params, lam, lam.shape[1] // 2, n_own)
         # H*lam0 at the face slots; padded face slots carry Hf == 0, so their
         # clamped slot-0 adds are exact no-ops
-        ndom, pad = F.shape
         rows = torch.arange(ndom, device=F.device)[:, None] * pad
         flat = (rows + params.fslot.clamp_min(0)).reshape(-1)
-        F = F.reshape(-1).index_add(0, flat, (params.Hf * lam0).reshape(-1)).reshape(ndom, pad)
-        G = G.reshape(-1).index_add(0, flat, (params.Hf * mu0).reshape(-1)).reshape(ndom, pad)
+        F = F.reshape(K, -1).index_add(1, flat, (params.Hf * lam0).reshape(K, -1))
+        G = G.reshape(K, -1).index_add(1, flat, (params.Hf * mu0).reshape(K, -1))
+        F, G = F.reshape(K, ndom, pad), G.reshape(K, ndom, pad)
     else:
-        lam0 = torch.zeros_like(params.Hf)
-        mu0 = torch.zeros_like(params.Hf)
+        lam0 = params.Hf.new_zeros((K, *params.Hf.shape))
+        mu0 = params.Hf.new_zeros((K, *params.Hf.shape))
     return F, G, lam0, mu0
+
+
+def _run_cycle(cycle: Callable, params: DDHParams, F, G, wh_maxit: int):
+    """One wave cycle over all K * ndom rows of F, G (K, ndom, pad): one call
+    of ``cycle`` (one kernel launch on the card); (u, v / omega) shaped like
+    F."""
+    K, ndom, pad = F.shape
+    u, v = cycle(_rows(params, K), F.reshape(K * ndom, pad), G.reshape(K * ndom, pad), wh_maxit)
+    return u.reshape(K, ndom, pad), v.reshape(K, ndom, pad) / params.omega
 
 
 def _scatter_updates(params: DDHParams, lam0, mu0, u, v, n_lambda: int) -> torch.Tensor:
     """Transmission update written to the dual trace slots (``_b1_scatter``)."""
-    fs = params.fslot.clamp_min(0)
-    uf = u.gather(1, fs)
-    vf = v.gather(1, fs)
+    fs = params.fslot.clamp_min(0).expand(u.shape[0], -1, -1)
+    uf = u.gather(2, fs)
+    vf = v.gather(2, fs)
     return _b1_scatter(params, -lam0 - params.a2wf * vf, -mu0 + params.a2wf * uf, n_lambda)
 
 
 def _scatter_solution(params: DDHParams, u, v, g_ndof: int) -> torch.Tensor:
-    """Mass-weighted assembly of the subdomain solutions into [u; v] of
-    length 2 g_ndof: each global DOF sums its slots in a fixed order
-    (``assemble`` with ``sol_table``), so no float atomics decide the order
-    of a sum and the result repeats bitwise."""
+    """Mass-weighted assembly of the subdomain solutions (K, ndom, pad) into
+    [u; v] rows of length 2 g_ndof: each global DOF sums its slots in a fixed
+    order (``assemble``'s table, ``sol_table``), so no float atomics decide
+    the order of a sum and the result repeats bitwise."""
+    table = params.sol_table
+    if table.shape[0] != g_ndof:
+        raise ValueError(f"sol_table covers {table.shape[0]} DOFs, not {g_ndof}")
+
+    def assemble_rows(vals):
+        flat = torch.cat([vals.reshape(vals.shape[0], -1), vals.new_zeros(vals.shape[0], 1)], 1)
+        return flat[:, table].sum(dim=2)
+
     w = params.m_gmi
-    if params.sol_table.shape[0] != g_ndof:
-        raise ValueError(f"sol_table covers {params.sol_table.shape[0]} DOFs, not {g_ndof}")
-    return torch.cat([assemble(params.sol_table, w * u), assemble(params.sol_table, w * v)])
+    return torch.cat([assemble_rows(w * u), assemble_rows(w * v)], dim=1)
 
 
 def ddh_action(
@@ -827,13 +915,13 @@ def ddh_action(
 ) -> torch.Tensor:
     """lambda - S(lambda): fixed-point form of the substructured system.
     ``cycle`` is the wave cycle to run (the kernel wrapper by default)."""
-    n_lambda = lam.shape[0] // 2
+    lam2 = _block(lam)
+    n_lambda = lam2.shape[1] // 2
     if n_own is None:
         n_own = params.B0.numel()
-    F, G, lam0, mu0 = _forcing(params, None, lam, 0, n_own)
-    u, v = cycle(params, F, G, wh_maxit)
-    v = v / params.omega
-    return lam - _scatter_updates(params, lam0, mu0, u, v, n_lambda)
+    F, G, lam0, mu0 = _forcing(params, None, lam2, 0, n_own)
+    u, v = _run_cycle(cycle, params, F, G, wh_maxit)
+    return _unblock(lam2 - _scatter_updates(params, lam0, mu0, u, v, n_lambda), lam)
 
 
 def ddh_rhs(
@@ -845,10 +933,9 @@ def ddh_rhs(
     cycle: Callable = wave_cycle,
 ) -> torch.Tensor:
     """b: transmission traces generated by the volume forcing alone."""
-    F, G, lam0, mu0 = _forcing(params, f, None, g_ndof)
-    u, v = cycle(params, F, G, wh_maxit)
-    v = v / params.omega
-    return _scatter_updates(params, lam0, mu0, u, v, n_lambda)
+    F, G, lam0, mu0 = _forcing(params, _block(f), None, g_ndof)
+    u, v = _run_cycle(cycle, params, F, G, wh_maxit)
+    return _unblock(_scatter_updates(params, lam0, mu0, u, v, n_lambda), f)
 
 
 def ddh_postprocess(
@@ -863,10 +950,9 @@ def ddh_postprocess(
     """Recover [u; v] from the substructured solution and the forcing."""
     if n_own is None:
         n_own = params.B0.numel()
-    F, G, _, _ = _forcing(params, f, lam, g_ndof, n_own)
-    u, v = cycle(params, F, G, wh_maxit)
-    v = v / params.omega
-    return _scatter_solution(params, u, v, g_ndof)
+    F, G, _, _ = _forcing(params, _block(f), _block(lam), g_ndof, n_own)
+    u, v = _run_cycle(cycle, params, F, G, wh_maxit)
+    return _unblock(_scatter_solution(params, u, v, g_ndof), f)
 
 
 # ------------------------------------------------------- the transfer/io apply
@@ -1040,102 +1126,111 @@ def _iomaps_split(inv: np.ndarray, device):
 
 
 def _group_apply(M, x, onehot, maj=None, spec_idx=None) -> torch.Tensor:
-    """y[d] = M[group(d)] @ x[d].
+    """y[..., d, :] = M[group(d)] @ x[..., d, :] for x (..., ndom, n): the
+    leading (source) axes ride along in every product.
 
-    With majority metadata: one shared matmul for every domain plus the
-    special rows recomputed (their indices are unique, so the overwrite
-    order does not matter).  Otherwise: above nu > ndom/4 gather each
-    domain's matrix and run one batched product; below, one product per
+    With majority metadata: one shared matmul over all rows plus the
+    special domains' rows recomputed (their indices are unique, so the
+    overwrite order does not matter).  Otherwise: above nu > ndom/4 gather
+    each domain's matrix and run one batched product; below, one product per
     unique matrix and a one-hot combine."""
     if spec_idx is not None:
         y = x @ M[maj].T
         if spec_idx.numel() > 0:
-            ys = _group_apply(M, x[spec_idx], onehot[:, spec_idx])
-            y.index_copy_(0, spec_idx, ys)
+            ys = _group_apply(M, x[..., spec_idx, :], onehot[:, spec_idx])
+            y.index_copy_(x.dim() - 2, spec_idx, ys)
         return y
     nu, ndom = onehot.shape
     if 4 * nu > ndom:
-        return torch.einsum("doi,di->do", M[onehot.argmax(dim=0)], x)
-    ys = torch.einsum("uoi,di->udo", M, x)
-    return torch.einsum("udo,ud->do", ys, onehot)
+        return torch.einsum("doi,...di->...do", M[onehot.argmax(dim=0)], x)
+    ys = torch.einsum("uoi,...di->...udo", M, x)
+    return torch.einsum("...udo,ud->...do", ys, onehot)
 
 
 def _b1_scatter(params: DDHParams, upd_l, upd_m, n_lambda: int) -> torch.Tensor:
-    """Write per-domain face updates to the dual trace slots.  The valid B1
-    ids are unique, so the write order does not matter; invalid slots all
-    write 0 to a dropped extra entry."""
+    """Write per-domain face updates (K, ndom, pf) to the dual trace slots of
+    K rows (K, 2 n_lambda).  The valid B1 ids are unique, so the write order
+    does not matter; invalid slots all write 0 to a dropped extra entry."""
+    K = upd_l.shape[0]
     has = params.B1 >= 0
     idx = torch.where(has, params.B1, n_lambda).reshape(-1)
-    out = torch.zeros((2, n_lambda + 1), dtype=upd_l.dtype, device=upd_l.device)
-    out[0, idx] = torch.where(has, upd_l, 0.0).reshape(-1)
-    out[1, idx] = torch.where(has, upd_m, 0.0).reshape(-1)
-    return out[:, :n_lambda].reshape(-1)
+    out = upd_l.new_zeros((K, 2, n_lambda + 1))
+    out[:, 0, idx] = torch.where(has, upd_l, 0.0).reshape(K, -1)
+    out[:, 1, idx] = torch.where(has, upd_m, 0.0).reshape(K, -1)
+    return out[:, :, :n_lambda].reshape(K, -1)
 
 
 def ddh_action_transfer(params: DDHParams, T, lam, n_own: int) -> torch.Tensor:
     """lambda - S(lambda) via the per-subdomain transfer matrices T (ndom,
     2pf, 2pf) and one scatter: the exchange when no roll route was found."""
-    n_lambda = lam.shape[0] // 2
+    lam2 = _block(lam)
+    n_lambda = lam2.shape[1] // 2
     pf = params.Hf.shape[1]
-    lam0, mu0 = _read_traces(params, lam, n_lambda, n_own)
-    w = torch.einsum("dik,dk->di", T, torch.cat([lam0, mu0], dim=1))
-    return lam - _b1_scatter(params, -lam0 - w[:, :pf], -mu0 + w[:, pf:], n_lambda)
+    lam0, mu0 = _read_traces(params, lam2, n_lambda, n_own)
+    w = torch.einsum("dik,bdk->bdi", T, torch.cat([lam0, mu0], dim=2))
+    upd = _b1_scatter(params, -lam0 - w[..., :pf], -mu0 + w[..., pf:], n_lambda)
+    return _unblock(lam2 - upd, lam)
 
 
 def _transfer_matmul(route: RollRoute, x: torch.Tensor) -> torch.Tensor:
-    """u2 = A x batched over subdomains (shared-majority split when set; the
-    special rows are unique, so ``index_add_`` order does not matter)."""
+    """u2 = A x batched over subdomains for x (K, ndom, 2pf): with the
+    shared-majority split one product over all K * ndom rows, the special
+    rows added (they are unique per source, so ``index_add_`` order does not
+    matter)."""
     if route.A0 is not None:
         u2 = x @ route.A0.T
         if route.A_spec is not None:
-            ws = torch.einsum("sik,sk->si", route.A_spec, x[route.spec_idx])
-            u2.index_add_(0, route.spec_idx, ws)
+            ws = torch.einsum("sik,bsk->bsi", route.A_spec, x[:, route.spec_idx])
+            u2.index_add_(1, route.spec_idx, ws)
         return u2
-    return torch.einsum("dik,dk->di", route.A, x)
+    return torch.einsum("dik,bdk->bdi", route.A, x)
 
 
 def ddh_action_transfer_rolled(params: DDHParams, route: RollRoute, lam, n_own: int):
     """lambda - S(lambda) with the roll-based trace exchange: one batched
     product against the identity-folded transfer matrix, then per route a
-    mask, a roll over the domain axis and a column gather; the remainder
-    through one scatter with unique targets."""
-    n_lambda = lam.shape[0] // 2
+    mask, a roll over each source's domain axis and a column gather; the
+    remainder through one scatter with unique targets."""
+    lam2 = _block(lam)
+    K = lam2.shape[0]
+    n_lambda = lam2.shape[1] // 2
     pf = params.B0.shape[1]
-    lam0, mu0 = _read_traces(params, lam, n_lambda, n_own)
-    u2 = _transfer_matmul(route, torch.cat([lam0, mu0], dim=1))
+    lam0, mu0 = _read_traces(params, lam2, n_lambda, n_own)
+    u2 = _transfer_matmul(route, torch.cat([lam0, mu0], dim=2))
     u2p = torch.nn.functional.pad(u2, (0, 1))  # zero pad column for dead slots
     out_own = torch.zeros_like(u2)
     for off, mask, perm in zip(route.offs, route.masks, route.perms):
-        out_own += torch.roll(mask * u2p, off, dims=0)[:, perm]
-    tail = lam.new_zeros(n_lambda - n_own)
-    out_l = torch.cat([out_own[:, :pf].reshape(-1), tail])
-    out_m = torch.cat([out_own[:, pf:].reshape(-1), tail])
+        out_own += torch.roll(mask * u2p, off, dims=1)[..., perm]
+    tail = lam2.new_zeros((K, n_lambda - n_own))
+    out_l = torch.cat([out_own[..., :pf].reshape(K, -1), tail], dim=1)
+    out_m = torch.cat([out_own[..., pf:].reshape(K, -1), tail], dim=1)
     if route.irr_src.numel() > 0:
-        out_l[route.irr_tgt] = u2[:, :pf].reshape(-1)[route.irr_src]
-        out_m[route.irr_tgt] = u2[:, pf:].reshape(-1)[route.irr_src]
-    return lam - torch.cat([out_l, out_m])
+        out_l[:, route.irr_tgt] = u2[..., :pf].reshape(K, -1)[:, route.irr_src]
+        out_m[:, route.irr_tgt] = u2[..., pf:].reshape(K, -1)[:, route.irr_src]
+    return _unblock(lam2 - torch.cat([out_l, out_m], dim=1), lam)
 
 
 def ddh_rhs_io(params: DDHParams, io: IOMaps, f, g_ndof: int, n_lambda: int):
     """``ddh_rhs`` through the precomputed forcing -> trace map: no wave
     cycle runs."""
-    F, G, _, _ = _forcing(params, f, None, g_ndof)
+    F, G, _, _ = _forcing(params, _block(f), None, g_ndof)
     pf = params.Hf.shape[1]
-    w = _group_apply(io.R, torch.cat([F, G], dim=1), io.onehot, io.maj, io.spec_idx)
-    return _b1_scatter(params, -w[:, :pf], w[:, pf:], n_lambda)
+    w = _group_apply(io.R, torch.cat([F, G], dim=2), io.onehot, io.maj, io.spec_idx)
+    return _unblock(_b1_scatter(params, -w[..., :pf], w[..., pf:], n_lambda), f)
 
 
 def ddh_postprocess_io(params: DDHParams, io: IOMaps, lam, f, g_ndof: int, n_own: int):
     """``ddh_postprocess`` through the precomputed maps: u = Pu [F; G] +
     Pul [lam0; mu0] (likewise v), then the mass-weighted global scatter."""
-    F, G, _, _ = _forcing(params, f, None, g_ndof)
-    lam0, mu0 = _read_traces(params, lam, lam.shape[0] // 2, n_own)
-    x = torch.cat([F, G], dim=1)
-    tr = torch.cat([lam0, mu0], dim=1)
+    lam2 = _block(lam)
+    F, G, _, _ = _forcing(params, _block(f), None, g_ndof)
+    lam0, mu0 = _read_traces(params, lam2, lam2.shape[1] // 2, n_own)
+    x = torch.cat([F, G], dim=2)
+    tr = torch.cat([lam0, mu0], dim=2)
 
     def ga(M, z):
         return _group_apply(M, z, io.onehot, io.maj, io.spec_idx)
 
     u = ga(io.Pu, x) + ga(io.Pul, tr)
     v = ga(io.Pv, x) + ga(io.Pvl, tr)
-    return _scatter_solution(params, u, v, g_ndof)
+    return _unblock(_scatter_solution(params, u, v, g_ndof), f)

@@ -141,3 +141,40 @@ def test_run_config_dispatches_new_kinds(monkeypatch):
     assert (kw["nx"], kw["n_domains"], kw["mesh"].n_elem, kw["tol"]) == (8, 8, 119, 1e-6)
     with pytest.raises(ValueError, match="unknown config kind"):
         run_config(dataclasses.replace(config.DDH_STRUCTURED, kind="nope"), device="cpu")
+
+
+def compare_with_jax(nx: int) -> dict:
+    """``run_helmholtz_ddh(nx=nx)`` at the default budgets in both packages
+    on the CPU, the JAX package under x64 with its io maps precomputed in
+    fp32 (``CUDDH_IO_MAPS=1``): refinement steps, outer restarts, matvecs
+    and the outer (true fp64 residual) and inner FGMRES histories of each."""
+    import os
+
+    os.environ["CUDDH_IO_MAPS"] = "1"
+    from cuddhelmholtz_tpu.examples.drivers import run_helmholtz_ddh as jrun
+
+    out = {}
+    for name, run in (("jax", lambda: jrun(nx=nx, measure_warm=False)),
+                      ("port", lambda: run_helmholtz_ddh(nx=nx, measure_warm=False,
+                                                         device="cpu"))):
+        r = run()
+        out[name] = {
+            "refine_steps": int(r.extra["refine_steps"]), "restarts": int(r.num_iter),
+            "matvecs": int(r.num_matvec), "success": bool(r.success),
+            "outer": [float(x) for x in np.asarray(r.res_norm)],
+            "inner_tols": [float(t) for t in r.extra["inner_tols"]],
+            "inner": [[float(x) for x in h] for h in r.extra["inner_histories"]],
+        }
+    return out
+
+
+if __name__ == "__main__":
+    # python tests/test_torch_composite.py NX [NX ...]: one JSON line per nx
+    import json
+    import os
+    import sys
+
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    os.environ["CUDDH_X64"] = "1"
+    for arg in sys.argv[1:]:
+        print(json.dumps({"nx": int(arg), **compare_with_jax(int(arg))}), flush=True)

@@ -8,7 +8,6 @@ both and are compared at 1e-6 relative on real slots (the port pads a
 subdomain to a multiple of 8, the JAX package to 128).
 """
 
-import dataclasses
 import os
 import subprocess
 import sys
@@ -22,8 +21,7 @@ from cuddhelmholtz_tpu.solvers.ddh import DDH as JDDH
 from cuddhelmholtz_tpu.spaces.h1 import H1Space as JH1Space
 from cuddhelmholtz_tpu.utils.basis import Basis as JBasis
 from cuddhelmholtz_tpu.utils.quadrature import QuadratureRule as JQuad
-from cuddhelmholtz_tpu_torch.config import DDH_STRUCTURED
-from cuddhelmholtz_tpu_torch.examples.drivers import run_config, run_ddh
+from cuddhelmholtz_tpu_torch.examples.drivers import run_ddh, run_ddh_multi_source
 from cuddhelmholtz_tpu_torch.mesh.mesh2d import Mesh2D
 from cuddhelmholtz_tpu_torch.solvers.ddh import DDH, ddh_params_from_jax
 from cuddhelmholtz_tpu_torch.spaces.h1 import H1Space
@@ -159,20 +157,22 @@ def test_params_from_jax_round_trip(pair):
 
 
 def test_run_ddh_unported_options_raise():
-    """The transfer path is ported now (it runs); the coarse space and the
-    multi-source config kind still raise, naming the ROADMAP item."""
+    """The transfer path and the multi-source kind are ported now (they
+    run); the coarse space and the multi-device source sharding still
+    raise, naming the ROADMAP queue."""
     res = run_ddh(nx=8, block_size=8, transfer=True, tol=1e-2, device="cpu")
     assert res.success and res.extra["ddh"].use_transfer
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run_ddh(nx=8, coarse="additive", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_config(dataclasses.replace(DDH_STRUCTURED, kind="ddh_multi"), device="cpu")
+        run_ddh_multi_source(nx=8, shard_sources=True, device="cpu")
 
 
 def test_port_imports_no_jax():
     mods = ("examples.drivers", "examples.large_unstructured", "config", "mesh.io",
             "mesh.refine", "spaces.ensemble", "solvers.ddh", "ops.cuda.wave_cycle",
-            "ops.stiffness", "ops.kron", "ops.structured", "models.poisson", "solvers.gmres")
+            "ops.stiffness", "ops.kron", "ops.structured", "models.poisson", "solvers.gmres",
+            "bench")
     code = ("import sys; " + "; ".join(f"import cuddhelmholtz_tpu_torch.{m}" for m in mods)
             + "; assert 'jax' not in sys.modules; assert 'cuddhelmholtz_tpu' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
