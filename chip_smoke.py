@@ -92,10 +92,32 @@ It imports nothing of JAX.  Phases, each raising on failure:
    JSON line with 14 / 292; ``BENCH_SKIP_CONFIGS=1 python -m
    cuddhelmholtz_tpu_torch.bench`` prints its JSON line, the headline
    successful at 18 / 379 (+-1 restart, 1 + 21 per restart).
+Phases 1-20 run with the DDH setup cache off (CUDDH_CACHE_DIR=""), their
+subprocesses too.
+21. The setup cache in a fresh temporary directory: the flagship transfer
+   ``run_ddh`` twice, a miss that launches the sparse kernel twice (the
+   transfer and io probes, as phase 5) and a hit that launches none, with
+   bitwise the same T, io maps, counts, history and solution; then
+   ``run_config(ddh_512_block32)`` cold and warm, prepare seconds against
+   load seconds.
+22. The patch io path against the gather path at the ``helmholtz_ddh_1e6``
+   DDH of phase 12 (the grid numbering; its P took the patch path): rhs and
+   postprocess within 1e-5 (fp32), both timed with CUDA events.
+23. nx 512 / block 16 (16,384 subdomains, 1,701,896 lambda unknowns):
+   ``run_ddh`` one level, <= 90 restarts (JAX on the TPU: 88 / 1,846), and
+   two-level multiplicative on the iterative coarse space (4 directions, one
+   subdomain per superdomain, coarse solve (20, 2, 3e-2): nc 294,912),
+   <= 23 restarts (JAX: 21 / 438); each succeeds with a plain-cycle
+   residual <= 1.2e-4, launches the sparse kernel in layout (a) only in
+   ``prepare``, and a repeated solve launches none and repeats bitwise.
+   Then the sparse kernel against the plain cycle on its probe rows.
+24. ``large_unstructured --levels 3 --domains 256 --coarse multiplicative``
+   through ``run_case``: success in <= 21 restarts (phase 9's JAX 18 + 3),
+   only the sparse grouped kernel launched.
 Every comparison holds a kernel within 2e-4 of the plain cycle relative to
 the max of u and v, with padded slots exactly 0.  The main-path runs
-(phases 3, 5, 6, 7, 9, 12, 13, 16, 17, 18, 19) must launch the sparse kernel
-and no dense one.
+(phases 3, 5, 6, 7, 9, 12, 13, 16, 17, 18, 19, 21, 23, 24) must launch the
+sparse kernel and no dense one.
 
 Every kernel count is set to 0 just before each main-path run and read just
 after; the ``launches`` of a kernel in the JSON line is the sum over those
@@ -115,8 +137,11 @@ non-zero, printing no result, when there is no CUDA device.
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -285,7 +310,8 @@ def _transfer_run(wc, run, what, max_restarts, jax_matvecs, matvec_slack, gm,
     solve_launches = sum(wc.wave_cycle.launches.values())
     print(f"{what}: success={res.success} restarts={res.num_iter} matvecs={res.num_matvec} "
           f"solve {res.seconds:.3f} s (again: {warm_s:.3f} s, {out2.num_iter} restarts / "
-          f"{out2.num_matvec} matvecs), setup {res.extra['setup_seconds']:.2f} s; prepare: "
+          f"{out2.num_matvec} matvecs), io path {ddh.io_path}, "
+          f"setup {res.extra['setup_seconds']:.2f} s; prepare: "
           f"transfer {pre['transfer_seconds']:.3f} s ({pre['transfer_rows']} rows, "
           f"{pre['transfer_layout']}), io {pre['io_seconds']:.3f} s ({pre['io_rows']} rows, "
           f"{pre['io_layout']}), nu={pre['transfer_nu']} of {res.extra['n_domains']} domains; "
@@ -309,6 +335,98 @@ def _transfer_run(wc, run, what, max_restarts, jax_matvecs, matvec_slack, gm,
     if not resid <= 1.2 * gm.tol:
         _fail(f"{what}: plain-cycle residual {resid:.3e} > {1.2 * gm.tol:.2e}")
     return res, launches
+
+
+def _cache_pair(wc, run, what, cache_dir):
+    """Run ``run`` twice in the cache directory ``cache_dir``: a miss, then a
+    hit that must launch no kernel and reproduce the first run bitwise (T,
+    groups, io maps, counts, history, solution).  Returns (the cold result,
+    its launches)."""
+    import torch
+
+    wc.reset_launches()
+    cold = run()
+    l_cold = dict(wc.wave_cycle.launches)
+    wc.reset_launches()
+    warm = run()
+    n_warm = sum(wc.wave_cycle.launches.values())
+    pc, pw = cold.extra["precompute"], warm.extra["precompute"]
+    cd, wd = cold.extra["ddh"], warm.extra["ddh"]
+    same = {
+        "T": np.array_equal(cd._T_u, wd._T_u),
+        "groups": np.array_equal(cd._T_groups, wd._T_groups),
+        "io": all(torch.equal(getattr(cd.io, n), getattr(wd.io, n))
+                  for n in ("Pu", "Pv", "R", "Pul", "Pvl")),
+        "counts": (cold.num_iter, cold.num_matvec) == (warm.num_iter, warm.num_matvec),
+        "history": np.array_equal(cold.res_norm, warm.res_norm),
+        "solution": np.array_equal(cold.solution, warm.solution),
+    }
+    size = os.path.getsize(os.path.join(cache_dir, f"ddh_{cd.setup_cache_key()}.npz"))
+    print(f"{what}: cold run (hit={pc['cache_hit']}) prepare "
+          f"{pc['transfer_seconds'] + pc['io_seconds']:.3f} s (transfer "
+          f"{pc['transfer_seconds']:.3f} s, io {pc['io_seconds']:.3f} s), launches {l_cold}, "
+          f"solve {cold.seconds:.3f} s, {cold.num_iter} / {cold.num_matvec}; cache file "
+          f"{size} B; warm run (hit={pw['cache_hit']}) load {pw['load_seconds']:.3f} s, "
+          f"{n_warm} launches, solve {warm.seconds:.3f} s, {warm.num_iter} / "
+          f"{warm.num_matvec}; setup {cold.extra['setup_seconds']:.3f} s against "
+          f"{warm.extra['setup_seconds']:.3f} s; bitwise the same: {same}")
+    if pc["cache_hit"] or not pw["cache_hit"]:
+        _fail(f"{what}: want a miss then a hit, got {pc['cache_hit']}, {pw['cache_hit']}")
+    if n_warm != 0:
+        _fail(f"{what}: the cache hit launched {n_warm} kernels")
+    if not all(same.values()):
+        _fail(f"{what}: the hit does not reproduce the cold run: {same}")
+    return cold, l_cold
+
+
+def _level_run(wc, run, what, max_restarts, coarse, gm):
+    """Drive one nx 512 run (one level, or two-level with ``coarse``) and
+    check it: success within ``max_restarts``, the sparse layout-(a) kernel
+    only (in ``prepare``: a repeated solve launches none and repeats the
+    run bitwise) and the plain-cycle residual.  Returns (result, launches,
+    seconds of the repeated solve)."""
+    import torch
+
+    from cuddhelmholtz_tpu_torch.examples.drivers import point_sources
+    from cuddhelmholtz_tpu_torch.models.helmholtz import helmholtz_rhs
+
+    wc.reset_launches()
+    res = run()
+    launches = dict(wc.wave_cycle.launches)
+    ddh, pre = res.extra["ddh"], res.extra["precompute"]
+    b = helmholtz_rhs(ddh.space, lambda xy: point_sources(xy, res.extra["omega"]))
+    b = b.to(ddh.gmask.device)
+    solve = ddh.solver(gm.m, gm.maxit, gm.tol, coarse=coarse)
+    wc.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out2, U2 = solve(b)
+    torch.cuda.synchronize()
+    again_s = time.perf_counter() - t0
+    again = sum(wc.wave_cycle.launches.values())
+    bitwise = (torch.equal(out2.x, res.extra["lam"])
+               and np.array_equal(out2.res_norm[: out2.n_hist].cpu().numpy(), res.res_norm)
+               and np.array_equal(U2.cpu().numpy(), res.solution))
+    resid = _plain_residual(wc, ddh, b, res.extra["lam"])
+    print(f"{what}: success={res.success} restarts={res.num_iter} matvecs={res.num_matvec} "
+          f"solve {res.seconds:.3f} s, repeated solve {again_s:.3f} s ({again} launches, "
+          f"bitwise the same: {bitwise}); setup {res.extra['setup_seconds']:.3f} s (prepare "
+          f"{pre['transfer_seconds'] + pre['io_seconds']:.3f} s: transfer "
+          f"{pre['transfer_seconds']:.3f} s, {pre['transfer_rows']} rows, io "
+          f"{pre['io_seconds']:.3f} s; nu={pre['transfer_nu']}; coarse build "
+          f"{res.extra.get('coarse_seconds', 0.0):.3f} s); io path {ddh.io_path}; launches "
+          f"{launches}; plain-cycle residual {resid:.3e}; history {res.res_norm[0]:.6e} -> "
+          f"{res.res_norm[-1]:.6e}; peak memory {torch.cuda.max_memory_allocated()} B")
+    if not res.success or res.num_iter > max_restarts:
+        _fail(f"{what}: success={res.success}, {res.num_iter} restarts (> {max_restarts}?)")
+    _only_sparse(launches, "shared", what)
+    if again != 0 or not bitwise:
+        _fail(f"{what}: the repeated solve launched {again} kernels or differs ({bitwise})")
+    if not resid <= 1.2 * gm.tol:
+        _fail(f"{what}: plain-cycle residual {resid:.3e} > {1.2 * gm.tol:.2e}")
+    if res.solution.shape != (2 * res.extra["ndof"],) or not np.isfinite(res.solution).all():
+        _fail(f"{what}: solution has shape {res.solution.shape} or non-finite values")
+    return res, launches, again_s
 
 
 def _ms_per_call(fn, device, reps: int = 5) -> float:
@@ -361,6 +479,7 @@ def _composite_run(wc, run, what, max_restarts, fem, dev):
     same_hist = first["res_norm"] == list(res.res_norm)
     prepare_s = pre["transfer_seconds"] + pre["io_seconds"]
     print(f"{what}: success={res.success} restarts={res.num_iter} matvecs={res.num_matvec} "
+          f"io path in P {ex['ddh'].io_path}, "
           f"refine_steps={ex['refine_steps']} stagnated={ex['stagnated']} "
           f"inner tols {ex['inner_tols']}; true residual history {list(res.res_norm)} "
           f"(rel {res.res_norm[-1] / res.res_norm[0]:.3e}); solve {res.seconds:.3f} s, warm "
@@ -427,6 +546,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
+    t_main = time.perf_counter()
+    # phases 1-20 (and their subprocesses) run with the setup cache off:
+    # phase 16 counts the probes of two prepares of one partition
+    os.environ["CUDDH_CACHE_DIR"] = ""
 
     from cuddhelmholtz_tpu_torch.config import DDH_512_BLOCK32 as bcfg
     from cuddhelmholtz_tpu_torch.config import DDH_STRUCTURED as cfg
@@ -602,6 +725,7 @@ def main() -> int:
     _only_sparse(launches, "shared", "flagship transfer path")
     for k in total:
         total[k] += launches[k]
+    counts5 = (res5.num_iter, res5.num_matvec)
     del res5
 
     # --- 6. the unstructured square at full size --------------------------------
@@ -730,6 +854,8 @@ def main() -> int:
     _only_sparse(launches, "shared", "helmholtz_ddh_1e6 prepare")
     for k in total:
         total[k] += launches[k]
+    # phase 22 holds its patch path to the gather path, in P too
+    hddh12, P12, n12 = res12.extra["ddh"], res12.extra["precond"], 2 * res12.extra["ndof"]
     del res12
 
     # --- 13. the composite 1e-6 solve on the unstructured square ---------------
@@ -1002,6 +1128,160 @@ def main() -> int:
     if abs(r - 18) > 1 or ex["gmres_matvecs"] != 1 + 21 * r:
         _fail(f"bench headline {r} / {ex['gmres_matvecs']}; want 18 / 379 (+-1 restart)")
     print(f"phase 20: {time.perf_counter() - t20:.1f} s")
+
+    # --- 21. the setup cache: a miss, then a hit, in a fresh directory --------
+    t21 = time.perf_counter()
+    cache_dir = tempfile.mkdtemp(prefix="ddh_cache_")
+    os.environ["CUDDH_CACHE_DIR"] = cache_dir
+    try:
+        cold, launches = _cache_pair(
+            wc, lambda: run_ddh(nx=nx, deg=deg, m=cfg.gmres.m, maxit=cfg.gmres.maxit,
+                                tol=cfg.gmres.tol, wh_maxit=cfg.wh_maxit,
+                                block_size=cfg.block_size, transfer=True, device=dev),
+            "setup cache, flagship transfer solve", cache_dir)
+        if launches != {**dict.fromkeys(launches, 0), "sparse_shared": 2}:
+            _fail(f"setup cache: the cold flagship run launched {launches}; want the two "
+                  "sparse layout-(a) probes of phase 5")
+        if (cold.num_iter, cold.num_matvec) != counts5:
+            _fail(f"setup cache: {cold.num_iter} / {cold.num_matvec}, phase 5 {counts5}")
+        for k in total:
+            total[k] += launches[k]
+        del cold
+        cold, launches = _cache_pair(wc, lambda: run_config(bcfg, device=dev),
+                                     "setup cache, ddh_512_block32", cache_dir)
+        _only_sparse(launches, "shared", "setup cache, ddh_512_block32 cold run")
+        for k in total:
+            total[k] += launches[k]
+        del cold
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+        os.environ["CUDDH_CACHE_DIR"] = ""
+    torch.cuda.empty_cache()
+    print(f"phase 21: {time.perf_counter() - t21:.1f} s")
+
+    # --- 22. patch against gather io at the helmholtz_ddh_1e6 DDH -------------
+    from cuddhelmholtz_tpu_torch.solvers.ddh import (
+        ddh_postprocess_io,
+        ddh_postprocess_io_patch,
+        ddh_rhs_io,
+        ddh_rhs_io_patch,
+    )
+
+    t22 = time.perf_counter()
+    pio, pshape = hddh12.patch_io()
+    if pio is None or hddh12.io_path != "patch":
+        _fail("helmholtz_ddh_1e6: the grid-numbered DDH has no patch io path")
+    hp, hio, hg = hddh12.params, hddh12.io, hddh12.g_ndof
+    rng22 = np.random.default_rng(22)
+    f22 = torch.from_numpy(rng22.standard_normal(2 * hg).astype(np.float32)).to(dev)
+    l22 = torch.from_numpy(rng22.standard_normal(hddh12.size).astype(np.float32)).to(dev)
+    io_fns = {
+        "rhs gather": lambda: ddh_rhs_io(hp, hio, f22, hg, hddh12.n_lambda),
+        "rhs patch": lambda: ddh_rhs_io_patch(hp, hio, pio, f22, hg, hddh12.n_lambda, pshape),
+        "postprocess gather": lambda: ddh_postprocess_io(hp, hio, l22, f22, hg, hddh12.n_own),
+        "postprocess patch": lambda: ddh_postprocess_io_patch(hp, hio, pio, l22, f22, hg,
+                                                              hddh12.n_own, pshape),
+    }
+    io_out = {k: fn() for k, fn in io_fns.items()}
+    io_err = {k: _rel_max(io_out[f"{k} patch"], io_out[f"{k} gather"])
+              for k in ("rhs", "postprocess")}
+    io_ms = {}
+    for k in [*io_fns, *reversed(io_fns)]:
+        io_ms.setdefault(k, []).append(_timed(io_fns[k], 50)[1])
+    print(f"patch io at helmholtz_ddh_1e6 (window {pshape}): rel err patch vs gather {io_err}; "
+          "CUDA-event ms per call (turns): " + "; ".join(
+              f"{k} {sum(t) / len(t):.4f} ({', '.join(f'{x:.4f}' for x in t)})"
+              for k, t in io_ms.items()))
+    if not all(e <= 1e-5 for e in io_err.values()):
+        _fail(f"patch io disagrees with the gather path: {io_err}")
+    # the composite's P on each path, in turns (the gather path forced by
+    # withholding the patch tables)
+    v22 = torch.from_numpy(np.random.default_rng(3).standard_normal(n12)).to(dev)
+    p_ms = {}
+    for path in ("patch", "gather", "gather", "patch"):
+        hddh12._patch = (None, None) if path == "gather" else (pio, pshape)
+        p_ms.setdefault(path, []).append(_ms_per_call(lambda: P12(v22), dev))
+    hddh12._patch = (pio, pshape)
+    print(f"helmholtz_ddh_1e6 P: host-clock ms per P with patch io {p_ms['patch']}, with "
+          f"gather io {p_ms['gather']}")
+    del hddh12, P12, hp, hio, pio, io_out, io_fns
+    torch.cuda.empty_cache()
+    print(f"phase 22: {time.perf_counter() - t22:.1f} s")
+
+    # --- 23. nx 512 / block 16: one level, then two-level multiplicative -----
+    from cuddhelmholtz_tpu_torch.config import GmresConfig
+
+    t23 = time.perf_counter()
+    gm23 = GmresConfig(m=20, maxit=200, tol=1e-4)
+    kw23 = dict(nx=512, deg=3, block_size=16, transfer=True, m=gm23.m, maxit=gm23.maxit,
+                tol=gm23.tol, device=dev)
+    two23 = dict(coarse="multiplicative", coarse_method="iterative", coarse_n_dir=4,
+                 coarse_domains_per_super=1, coarse_solve=(20, 2, 3e-2))
+    torch.cuda.reset_peak_memory_stats()
+    res23, launches, again1 = _level_run(wc, lambda: run_ddh(**kw23),
+                                         "nx 512 / block 16, one level", 90, None, gm23)
+    one23 = (res23.num_iter, res23.num_matvec, res23.seconds, again1)
+    if (res23.extra["n_domains"], res23.extra["n_lambda"]) != (16384, 1701896):
+        _fail(f"nx 512 / block 16: {res23.extra['n_domains']} domains, "
+              f"{res23.extra['n_lambda']} unknowns")
+    for k in total:
+        total[k] += launches[k]
+    del res23
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res23, launches, again2 = _level_run(wc, lambda: run_ddh(**kw23, **two23),
+                                         "nx 512 / block 16, two-level multiplicative", 23,
+                                         "multiplicative", gm23)
+    for k in total:
+        total[k] += launches[k]
+    cddh = res23.extra["ddh"]
+    nc23 = 2 * cddh.coarse_space.members.shape[0] * cddh.coarse_space.V.shape[2]
+    print(f"nx 512 / block 16: nc {nc23}, coarse build {res23.extra['coarse_seconds']:.3f} s; "
+          f"one level {one23[0]} / {one23[1]} in {one23[2]:.3f} s (again {one23[3]:.3f} s), "
+          f"two-level {res23.num_iter} / {res23.num_matvec} in {res23.seconds:.3f} s (again "
+          f"{again2:.3f} s)")
+    if nc23 != 294912:
+        _fail(f"nx 512 / block 16: nc {nc23}, want 294912")
+    uidx, _, nu = cddh._domain_groups()
+    c = 2 * cddh._fslot_np.shape[1]
+    ui = torch.as_tensor(uidx, device=dev)
+    cp = cddh.params
+    p23 = cp._replace(Ha=cp.Ha[ui].repeat(c, 1), inv_mi=cp.inv_mi[ui].repeat(c, 1))
+    m23 = cddh.gmask[ui].repeat(c, 1)
+    mm = m23.cpu().numpy()
+    F23, G23 = _masked_normal(rng, mm, dev), _masked_normal(rng, mm, dev)
+    rows_23 = nu * c
+    what = f"layout (a), nx 512 / block 16 transfer probe ({nu} x {c} rows, pad {cddh.pad})"
+    res_23, plain_ms_23, _ = _compare(wc, p23, F23, G23, cddh.wh_maxit, m23 == 0, what,
+                                      ("sparse",), reps=1, form=cddh.S_sparse)
+    bound_23, by_23 = _cycle_bound(cddh.S_sparse, rows_23, rows_23, cddh.pad, cddh.nt,
+                                   cddh.wh_maxit)
+    _rates(what, _cycle_flop(cddh.S_sparse, rows_23, cddh.nt, cddh.wh_maxit), rows_23,
+           cddh.pad, cddh.nt, cddh.wh_maxit, res_23, bound_23, by_23)
+    shapes["sparse_shared"].append({
+        "at": f"nx 512 / block 16 transfer probe, {rows_23} rows, pad {cddh.pad}, "
+              f"nt {cddh.nt}", "nnz": _nnz(cddh.S_sparse), "stride": cddh.S_sparse.stride,
+        "form_ms": 1e3 * cddh.sparse_seconds, "ms": res_23["sparse"][1],
+        "plain_ms": plain_ms_23, "bound_ms": bound_23, "bound_by": by_23,
+    })
+    del res23, cddh, cp, p23, F23, G23, m23
+    torch.cuda.empty_cache()
+    print(f"phase 23: {time.perf_counter() - t23:.1f} s")
+
+    # --- 24. large_unstructured L3 --coarse multiplicative ---------------------
+    t24 = time.perf_counter()
+    wc.reset_launches()
+    rec = lu.run_case("unstructured_L3_coarse_mult", lmesh, 256, 3, lomega, ucfg.gmres.tol,
+                      coarse="multiplicative", device=dev)
+    launches = dict(wc.wave_cycle.launches)
+    print(f"large_unstructured L3 --coarse multiplicative: {json.dumps(rec)}; launches {launches}")
+    _only_sparse(launches, "grouped", "L3 --coarse")
+    if not rec["success"] or rec["restarts"] > 21 or "coarse" not in rec:
+        _fail(f"L3 --coarse: success={rec['success']}, {rec['restarts']} restarts (> 21?)")
+    for k in total:
+        total[k] += launches[k]
+    print(f"phase 24: {time.perf_counter() - t24:.1f} s")
+    print(f"phases 1-24: {time.perf_counter() - t_main:.1f} s")
     print(f"kernel launches over the main-path runs: {total}")
     for row in (r for rows in shapes.values() for r in rows):
         dense = (f" against {row['dense']} {row['dense_ms']:.3f} ms "
@@ -1022,7 +1302,7 @@ def main() -> int:
     print(json.dumps({"kernels": [
         entry("wave_cycle sparse (a) shared S", "wave_cycle_sparse.cu", 69, "sparse_shared",
               max(res_a["sparse"][0], res_sa["sparse"][0], res_s176["sparse"][0],
-                  res_h["sparse"][0], res_k["sparse"][0]),
+                  res_h["sparse"][0], res_k["sparse"][0], res_23["sparse"][0]),
               res_a["sparse"][1], plain_ms, bound_a, by_a, nnz=nnz_a, stride=form_a.stride, form_ms=form_ms_a,
               shapes=shapes["sparse_shared"]),
         entry("wave_cycle sparse (b) grouped S", "wave_cycle_sparse.cu", 201, "sparse_grouped",

@@ -3,8 +3,8 @@
 Counterpart of ``cuddhelmholtz_tpu/config.py`` (copied: importing the JAX
 module would import jax).  ``BASELINE_CONFIGS`` holds the JAX package's nine
 entries in its order and with its values; each also has a module constant
-(``DDH_STRUCTURED``, ...).  The JAX package's ``coarse`` and ``rhs_split``
-fields come with the code that reads them.
+(``DDH_STRUCTURED``, ...).  The JAX package's ``rhs_split`` field comes
+with the code that reads it.
 """
 
 from __future__ import annotations
@@ -37,6 +37,9 @@ class ProblemConfig:
     n_sources: int = 8
     # DDH subdomain side length in DOFs
     block_size: int = 16
+    # two-level coarse correction: None | "additive" | "multiplicative"
+    # (solvers/coarse.py; needs transfer=True)
+    coarse: str | None = None
 
     @property
     def omega(self) -> float:

@@ -127,7 +127,7 @@ def run_config(cfg, **overrides) -> DriverResult:
     if mesh is not None:
         labels, _ = coordinate_bisection_labels(mesh, cfg.n_domains or 8)
         return run_ddh(mesh=mesh, element_labels=labels, **kw)
-    return run_ddh(block_size=cfg.block_size, **kw)
+    return run_ddh(block_size=cfg.block_size, coarse=cfg.coarse, **kw)
 
 
 def run_poisson(
@@ -254,6 +254,10 @@ def run_ddh(
     omega: float | None = None,
     out_dir: str | None = None,
     measure_warm: bool = False,
+    coarse_n_dir: int = 4,
+    coarse_domains_per_super: int = 16,
+    coarse_method: str = "direct",
+    coarse_solve: tuple = (20, 2, 3e-2),
     *,
     device="cuda",
 ) -> DriverResult:
@@ -274,11 +278,17 @@ def run_ddh(
     the results are the first solve's).  ``out_dir`` receives the
     coordinates, the solution and the residual history in the reference's
     formats.
+
+    ``coarse="additive"`` or ``"multiplicative"`` (needs ``transfer``) adds
+    the two-level plane-wave coarse correction (``DDH.make_coarse`` with
+    ``coarse_n_dir``, ``coarse_domains_per_super``, ``coarse_method`` and
+    the iterative coarse solve's (m, maxit, tol) ``coarse_solve``; FGMRES
+    on the lambda system); ``extra["coarse"]`` names the mode and
+    ``extra["coarse_seconds"]`` is the build time, part of
+    ``setup_seconds``.
     """
-    if coarse:
-        raise NotImplementedError(
-            "coarse: the two-level coarse space is not ported yet (ROADMAP queue 1)"
-        )
+    if coarse and not transfer:
+        raise ValueError("coarse correction requires transfer=True")
     device = check_device(device)
     if omega is None:
         omega = 2 * np.pi * nx / 10
@@ -304,9 +314,17 @@ def run_ddh(
     if transfer:
         # the io maps pay off where the probe cycles are cheap: on the card
         pstats = ddh.prepare(want_io=device.type == "cuda")
+    coarse_info = {}
+    if coarse:
+        sm, smx, stl = coarse_solve
+        t0 = time.perf_counter()
+        ddh.make_coarse(n_dir=coarse_n_dir, domains_per_super=coarse_domains_per_super,
+                        method=coarse_method, solve_m=sm, solve_maxit=smx, solve_tol=stl)
+        _sync(device)
+        coarse_info = {"coarse": coarse, "coarse_seconds": time.perf_counter() - t0}
     setup_s = time.perf_counter() - t_setup
 
-    solve = ddh.solver(m, maxit, tol)
+    solve = ddh.solver(m, maxit, tol, coarse=coarse)
     out, U, dt = _timed_solve(solve, b, device)
     warm = {}
     if measure_warm:
@@ -335,6 +353,7 @@ def run_ddh(
             "precompute": pstats,
             "ddh": ddh,
             "lam": out.x,
+            **coarse_info,
             **warm,
         },
     )

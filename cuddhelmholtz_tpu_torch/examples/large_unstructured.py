@@ -10,14 +10,15 @@ jittered-grid control.  At ``--levels 3 --domains 256`` every subdomain has
 its own stiffness at pad 320, so the probes run the sparse kernel in the
 grouped layout.  ``--composite`` also solves the coupled system to 1e-6
 (``run_helmholtz_ddh`` on the same partition) and adds its ``composite``
-record.
-
-The JAX example's two-level coarse space (``--coarse``) is not ported yet
-and raises.
+record.  ``--coarse additive|multiplicative`` adds the two-level
+correction (the iterative block-sparse coarse space, ``--coarse-n-dir``
+directions, ``--coarse-dps`` subdomains per superdomain) to the lambda-solve
+and a ``coarse`` record with its size ``nc`` and ``build_seconds``.
 
 Usage (on the card; ``--device cpu`` runs the CPU path):
   python -m cuddhelmholtz_tpu_torch.examples.large_unstructured \\
-      [--levels 3] [--domains 256] [--deg 3] [--composite] [--control] [--out FILE]
+      [--levels 3] [--domains 256] [--deg 3] [--composite] [--control] \\
+      [--coarse multiplicative [--coarse-n-dir 4] [--coarse-dps 4]] [--out FILE]
 """
 
 from __future__ import annotations
@@ -46,13 +47,18 @@ def median_h(mesh) -> float:
     return float(np.sqrt(np.median(area)))
 
 
-def solve_case(mesh, n_domains: int, deg: int, omega: float, tol: float, *,
+def solve_case(mesh, n_domains: int, deg: int, omega: float, tol: float,
+               coarse: str | None = None, coarse_n_dir: int = 4, coarse_dps: int = 4, *,
                device="cuda") -> DriverResult:
     """Bisect ``mesh`` into ``n_domains`` and run the transfer-path DDH solve
-    (``run_ddh``: prepare, then rhs, lambda-GMRES(20) and postprocess)."""
+    (``run_ddh``: prepare, then rhs, lambda-GMRES(20) and postprocess); with
+    ``coarse`` the two-level solve on the iterative coarse space (coarse
+    solve m 20, 2 restarts, tol 3e-2)."""
     labels, _ = coordinate_bisection_labels(mesh, n_domains)
     return run_ddh(deg=deg, tol=tol, mesh=mesh, element_labels=labels, omega=omega,
-                   transfer=True, device=device)
+                   transfer=True, coarse=coarse, coarse_n_dir=coarse_n_dir,
+                   coarse_domains_per_super=coarse_dps, coarse_method="iterative",
+                   coarse_solve=(20, 2, 3e-2), device=device)
 
 
 def case_record(name: str, mesh, res: DriverResult) -> dict:
@@ -60,8 +66,8 @@ def case_record(name: str, mesh, res: DriverResult) -> dict:
     ddh = res.extra["ddh"]
     pre = res.extra["precompute"]
     counts = ddh.efem.n_elems[:ddh.n_domains]
-    prepare_s = pre.get("transfer_seconds", 0.0) + pre.get("io_seconds", 0.0)
-    return {
+    prepare_s = sum(pre.get(k, 0.0) for k in ("transfer_seconds", "io_seconds", "load_seconds"))
+    rec = {
         "case": name,
         "n_elem": int(mesh.n_elem),
         "ndof": int(res.extra["ndof"]),
@@ -72,7 +78,8 @@ def case_record(name: str, mesh, res: DriverResult) -> dict:
         "nt": int(ddh.nt),
         "pad": int(ddh.pad),
         "shared_S": bool(ddh.shared_S),
-        "ctor_seconds": res.extra["setup_seconds"] - prepare_s,
+        "ctor_seconds": res.extra["setup_seconds"] - prepare_s
+        - res.extra.get("coarse_seconds", 0.0),
         "prepare_seconds": prepare_s,
         "prepare": {k: v for k, v in pre.items() if not isinstance(v, (list, dict))},
         "transfer_nu": pre.get("transfer_nu"),
@@ -83,17 +90,26 @@ def case_record(name: str, mesh, res: DriverResult) -> dict:
         "solve_seconds": float(res.seconds),
         "final_rel_res": float(res.res_norm[-1] / res.res_norm[0]),
     }
+    cs = ddh.coarse_space
+    if cs is not None:
+        meta = ddh._coarse_meta
+        rec["coarse"] = {
+            "mode": res.extra["coarse"], "n_dir": int(meta[0]), "dps": int(meta[1]),
+            "nc": int(2 * cs.members.shape[0] * cs.V.shape[2]),
+            "build_seconds": res.extra["coarse_seconds"],
+        }
+    return rec
 
 
 def run_case(name: str, mesh, n_domains: int, deg: int, omega: float, tol: float,
-             composite: bool = False, coarse: str | None = None, *, device="cuda") -> dict:
+             composite: bool = False, coarse: str | None = None, coarse_n_dir: int = 4,
+             coarse_dps: int = 4, *, device="cuda") -> dict:
     """Solve one case and return its record."""
-    if coarse:
-        raise NotImplementedError(
-            "coarse: the two-level coarse space is not ported yet (ROADMAP queue 1)"
-        )
-    res = solve_case(mesh, n_domains, deg, omega, tol, device=device)
+    res = solve_case(mesh, n_domains, deg, omega, tol, coarse, coarse_n_dir, coarse_dps,
+                     device=device)
     rec = case_record(name, mesh, res)
+    if "coarse" in rec:
+        log(f"[{name}] coarse space: {rec['coarse']}")
     log(f"[{name}] nel={rec['n_elem']} ndof={rec['ndof']} omega={rec['omega']:.1f} "
         f"ndom={rec['n_domains']} pad={rec['pad']} nt={rec['nt']} nu={rec['transfer_nu']} "
         f"routes={rec['roll_routes']} prepare {rec['prepare_seconds']:.1f}s: "
@@ -126,7 +142,9 @@ def main(argv=None):
     ap.add_argument("--omega-scale", type=float, default=1.0,
                     help="multiply omega (x2 halves the elements per wavelength)")
     ap.add_argument("--coarse", default=None, choices=["additive", "multiplicative"],
-                    help="two-level correction (not ported yet)")
+                    help="two-level correction (iterative block-sparse space)")
+    ap.add_argument("--coarse-n-dir", type=int, default=4)
+    ap.add_argument("--coarse-dps", type=int, default=4)
     ap.add_argument("--composite", action="store_true",
                     help="also run the coupled 1e-6 solve")
     ap.add_argument("--control", action="store_true",
@@ -146,10 +164,12 @@ def main(argv=None):
     if args.control:
         nxj = int(round(np.sqrt(mesh.n_elem)))
         cases.append((f"jittered_{nxj}x{nxj}", jittered_grid(nxj, nxj, amount=0.25, seed=1)))
+    # as the JAX example: the coarse correction on the main case only
     recs = [
-        run_case(name, m, args.domains, args.deg, omega, args.tol, args.composite, args.coarse,
+        run_case(name, m, args.domains, args.deg, omega, args.tol, args.composite,
+                 args.coarse if i == 0 else None, args.coarse_n_dir, args.coarse_dps,
                  device=args.device)
-        for name, m in cases
+        for i, (name, m) in enumerate(cases)
     ]
     for r in recs:
         print(json.dumps(r))

@@ -455,9 +455,7 @@ def wave_cycle(
     _check_operands(params, F, G)
     ndom, pad = F.shape
     dev = F.device.index
-    limit = _library("resident").wave_cycle_max_shared_memory(dev)
-    if limit < 0:
-        raise RuntimeError(f"wave_cycle: cannot read the shared-memory limit of cuda:{dev}")
+    limit = _shared_memory_limit(dev)
     form = None
     if variant in (None, "sparse"):
         form = sparse_form(S) if sparse is None else sparse
@@ -483,6 +481,20 @@ def wave_cycle(
         raise RuntimeError(f"wave_cycle: {variant} kernel launch failed: {msg}")
     wave_cycle.launches[layout if variant == "resident" else f"{variant}_{layout}"] += 1
     return u, v
+
+
+def _shared_memory_limit(dev: int) -> int:
+    """Bytes of shared memory a block may use on cuda:``dev``."""
+    limit = _library("resident").wave_cycle_max_shared_memory(dev)
+    if limit < 0:
+        raise RuntimeError(f"wave_cycle: cannot read the shared-memory limit of cuda:{dev}")
+    return limit
+
+
+def default_variant(pad: int, form: SparseS, device: torch.device) -> str:
+    """The kernel ``wave_cycle`` runs by default at ``pad`` with the sparse
+    form ``form`` on the CUDA ``device`` (``kernel_variant``)."""
+    return kernel_variant(pad, _shared_memory_limit(device.index), form.stride)
 
 
 def reset_launches() -> None:

@@ -19,8 +19,13 @@ float32.  Two paths:
     (``precompute_io_maps``); the solve then runs no wave cycle, only
     batched matmuls and the trace exchange (rolled, or one scatter).
 
-The disk cache of the precomputed maps, the window-patch io variant and the
-coarse space are not ported yet.
+``prepare`` keeps the precomputed maps (and a coarse space built later) in
+a disk cache keyed by a hash of the cycle data, so a repeat run of a
+configuration loads them and runs no probe.  On a row-major grid numbering
+(``GridH1Space``) the io maps run through window patches (``patch_io``):
+the forcing gather is one ``unfold`` and the solution assembly one
+``fold``.  ``make_coarse`` and ``solver(coarse=...)`` add the two-level
+plane-wave coarse correction of ``solvers/coarse.py``.
 
 The port pads a subdomain to a multiple of ``PAD_MULTIPLE`` = 8 DOFs (169 ->
 176 at the flagship, 625 -> 632 with 32-DOF blocks) instead of the JAX
@@ -32,7 +37,10 @@ fit.
 
 from __future__ import annotations
 
+import hashlib
+import os
 import time
+import zipfile
 from collections import defaultdict
 from typing import Callable, NamedTuple
 
@@ -40,7 +48,14 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.cuda.wave_cycle import ROWS_PER_BLOCK, WH_MAXIT, SparseS, sparse_form, wave_cycle
+from ..ops.cuda.wave_cycle import (
+    ROWS_PER_BLOCK,
+    WH_MAXIT,
+    SparseS,
+    default_variant,
+    sparse_form,
+    wave_cycle,
+)
 from ..ops.mass import assembly_table, lumped_mass_diagonal
 from ..spaces.ensemble import EnsembleSpace, structured_labels
 from ..spaces.h1 import H1Space
@@ -49,6 +64,7 @@ from .gmres import (
     GmresResult,
     LockstepResult,
     block_gmres,
+    fgmres,
     gmres,
     gmres_lockstep,
 )
@@ -57,6 +73,16 @@ PAD_MULTIPLE = 8
 # probe columns go through the cycle in chunks of at most this many state
 # elements per (rows, pad) array: 128 MB of float32
 PROBE_STATE_ELEMS = 1 << 25
+# version of the setup cache's file layout and key (the port's own: its
+# entries never share a key with the JAX package's)
+CACHE_FORMAT_VERSION = 1
+# the setup cache's directory when neither ``prepare(cache_dir=)`` nor
+# CUDDH_CACHE_DIR names one: ``.ddh_cache_torch/`` at the repository root
+DEFAULT_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    ".ddh_cache_torch",
+)
+_IO_FIELDS = ("Pu", "Pv", "R", "Pul", "Pvl")
 
 
 class DDHParams(NamedTuple):
@@ -450,15 +476,20 @@ class DDH(nn.Module):
             fslot >= 0, 2.0 * omega * np.take_along_axis(a_sub, fs_safe, axis=1), 0.0
         )
 
-        # host copies for the dedup key and the transfer/io route builders
+        # host copies for the dedup and cache keys, the transfer route and
+        # io maps, and the coarse-space assembly
         self._fslot_np = fslot
         self._Hf_np = Hf
+        self._B0_np = B[:, :, 0].copy()
         self._B1_np = B[:, :, 1].copy()
+        self._gI_np = gI
         self._Ha_np = H_sub * a_sub
         self._mi_np = inv_mi
         self._a2wf_np = a2wf
         self._S_np = S_dev
+        self._tables_np = tables
         self._groups = None
+        self._setup_key: str | None = None
         # transfer/io state (``prepare``): the deduped host transfer stack
         # _T_u with its group vector; the full per-domain stack ``T`` is
         # expanded on first use (the rolled exchange never reads it)
@@ -468,6 +499,11 @@ class DDH(nn.Module):
         self.use_transfer = False
         self.route: RollRoute | None = None
         self.io: IOMaps | None = None
+        self._patch: tuple | None = None  # (PatchIO, pshape) or (None, None), built lazily
+        self.coarse_space = None  # CoarseSpace | SparseCoarseSpace (``make_coarse``)
+        self._coarse_meta: tuple | None = None
+        self.coarse_solve = (40, 4, 1e-3)  # (m, maxit, tol) of an iterative coarse solve
+        self._cache_dir: str | None = None  # set by ``prepare``; ``make_coarse`` saves there
         self.transfer_stats: dict = {}
         self.io_stats: dict = {}
 
@@ -533,9 +569,32 @@ class DDH(nn.Module):
         return ddh_action(self.params, lam, n_own=self.n_own, wh_maxit=self.wh_maxit,
                           cycle=self._cycle)
 
+    @property
+    def io_path(self) -> str:
+        """The path ``rhs`` and ``postprocess`` take: ``"patch"`` (the io maps
+        through window patches), ``"gather"`` (the io maps through the slot
+        gather and the assembly table) or ``"cycle"`` (a wave cycle each)."""
+        if not (self.use_transfer and self.io is not None):
+            return "cycle"
+        return "gather" if self.patch_io()[0] is None else "patch"
+
+    def patch_io(self) -> tuple:
+        """(PatchIO, pshape) of the window-patch io path, or (None, None)
+        when there are no io maps or the numbering is not window-regular
+        (``_build_patch_io``).  Built once per set of io maps."""
+        if self.io is None:
+            return (None, None)
+        if self._patch is None:
+            self._patch = _build_patch_io(self.space, self.params, self.io)
+        return self._patch
+
     def rhs(self, f: torch.Tensor) -> torch.Tensor:
         """Substructured rhs from the Helmholtz forcing."""
         if self.use_transfer and self.io is not None:
+            pio, pshape = self.patch_io()
+            if pio is not None:
+                return ddh_rhs_io_patch(self.params, self.io, pio, f, self.g_ndof,
+                                        self.n_lambda, pshape)
             return ddh_rhs_io(self.params, self.io, f, self.g_ndof, self.n_lambda)
         return ddh_rhs(self.params, f, self.g_ndof, self.n_lambda, wh_maxit=self.wh_maxit,
                        cycle=self._cycle)
@@ -543,6 +602,10 @@ class DDH(nn.Module):
     def postprocess(self, lam: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
         """Recover the [u; v] solution."""
         if self.use_transfer and self.io is not None:
+            pio, pshape = self.patch_io()
+            if pio is not None:
+                return ddh_postprocess_io_patch(self.params, self.io, pio, lam, f,
+                                                self.g_ndof, self.n_own, pshape)
             return ddh_postprocess_io(self.params, self.io, lam, f, self.g_ndof, self.n_own)
         return ddh_postprocess(
             self.params, lam, f, self.g_ndof, n_own=self.n_own, wh_maxit=self.wh_maxit,
@@ -745,24 +808,187 @@ class DDH(nn.Module):
             Pu=t(Pu), Pv=t(Pv), R=t(R), Pul=t(Pul), Pvl=t(Pvl),
             onehot=t(groups[None, :] == np.arange(nu)[:, None]), maj=maj, spec_idx=spec,
         )
+        self._patch = None
         return self.io
 
-    def prepare(self, want_io: bool = True) -> dict:
-        """Compute the transfer (and optionally io) maps; returns the stats
-        (seconds per phase, unique domains, columns, layout).  The JAX
-        package's disk cache of these maps is not ported."""
-        stats: dict = {}
+    # ------------------------------------------------------------ setup cache
+
+    def setup_cache_key(self) -> str:
+        """Content hash naming this operator's precomputed maps in the setup
+        cache.  T and the io maps are functions of the per-subdomain cycle
+        data (S, Ha, inv_mi, Hf, a2wf, fslot, the time tables) and the
+        cycle parameters, so any DDH with the same hash can load them."""
+        if self._setup_key is None:
+            self._setup_key = self._compute_setup_key()
+        return self._setup_key
+
+    def _compute_setup_key(self) -> str:
+        """The JAX package's key parts from the port's host staging arrays,
+        in float32 (the compute dtype) and int32, plus the cache format
+        version and a backend tag: ``torch``, the device type and the cycle
+        that runs the probes (the kernel the card dispatches to, or the
+        plain cycle on the CPU).  Probes of different cycles differ at fp32
+        round-off, so an entry of the JAX package or of another device is
+        never loaded."""
+        h = hashlib.sha256()
+        S = np.asarray(self._S_np)
+        if S.ndim == 3 and S.size > (1 << 24):
+            # large per-domain stacks: two seeded probe responses
+            S = S @ np.random.default_rng(0).standard_normal((self.pad, 2))
+        for arr in (S, self._Ha_np, self._mi_np, self._Hf_np, self._a2wf_np, self._tables_np):
+            h.update(np.ascontiguousarray(arr, dtype=np.float32).tobytes())
+        for arr in (self._fslot_np, self._B0_np, self._B1_np):
+            h.update(np.ascontiguousarray(arr, dtype=np.int32).tobytes())
+        dev = self.gmask.device
+        cycle = "plain" if dev.type == "cpu" else default_variant(self.pad, self.S_sparse, dev)
+        h.update(repr((
+            CACHE_FORMAT_VERSION, "torch", dev.type, cycle, self.wh_maxit, self.pad,
+            self.n_own, self.n_lost, self.nt, float(self.omega), float(self.dt), "float32",
+        )).encode())
+        return h.hexdigest()[:24]
+
+    def _cache_path(self, cache_dir: str) -> str:
+        return os.path.join(cache_dir, f"ddh_{self.setup_cache_key()}.npz")
+
+    def save_precomputed(self, cache_dir: str) -> str:
+        """Write the deduped transfer stack, the io maps and the coarse space
+        (the JAX package's ``.npz`` layout) under ``setup_cache_key``: to a
+        file named with the pid, then moved into place, so a reader never
+        sees a partial file."""
+        from .coarse import coarse_arrays
+
+        os.makedirs(cache_dir, exist_ok=True)
+        path = self._cache_path(cache_dir)
+        data = {"groups": self._T_groups}
+        if self._T_u is not None:
+            data["T_u"] = self._T_u
+        if self.io is not None:
+            for name in _IO_FIELDS:
+                data[name] = getattr(self.io, name).cpu().numpy()
+        if self.coarse_space is not None:
+            for k, v in coarse_arrays(self.coarse_space).items():
+                data[f"coarse_{k}"] = v
+            data["coarse_meta"] = np.asarray(self._coarse_meta, dtype=np.float64)
+        tmp = f"{path}.tmp.{os.getpid()}.npz"
+        np.savez(tmp, **data)
+        os.replace(tmp, path)
+        return path
+
+    def try_load_precomputed(self, cache_dir: str) -> bool:
+        """Load this operator's cache entry if there is one; True on a hit.
+        Restores the transfer stack (and the roll route), the io maps and the
+        coarse space that the entry holds; no probe runs.  A file that does
+        not read counts as a miss and is deleted."""
+        from .coarse import coarse_from_arrays
+
+        path = self._cache_path(cache_dir)
+        if not os.path.exists(path):
+            return False
+        try:
+            with np.load(path) as z:
+                if "T_u" not in z.files:
+                    return False
+                groups, T_u = z["groups"], z["T_u"]
+                io = {k: z[k] for k in _IO_FIELDS} if "Pu" in z.files else None
+                coarse = ({k[len("coarse_"):]: z[k] for k in z.files if k.startswith("coarse_")}
+                          if "coarse_V" in z.files else None)
+        except (OSError, EOFError, ValueError, zipfile.BadZipFile):
+            # truncated or corrupt (a writer that died): drop it, so the
+            # next save replaces it
+            try:
+                os.unlink(path)
+            except OSError:
+                pass
+            return False
+        self.set_transfer(T_u, groups)
+        if io is not None:
+            self.set_io_maps(*(io[k] for k in _IO_FIELDS), groups)
+        if coarse is not None:
+            self._coarse_meta = tuple(coarse.pop("meta").tolist())
+            self.coarse_space = coarse_from_arrays(coarse, self.gmask.device)
+        return True
+
+    def prepare(self, cache_dir: str | None = None, want_io: bool = True) -> dict:
+        """Load or compute the transfer (and optionally io) maps; returns
+        the stats: ``cache_hit``, ``cache_dir``, and ``load_seconds`` on a
+        hit, else the seconds per phase, unique domains, columns and layout.
+
+        ``cache_dir=None`` resolves CUDDH_CACHE_DIR, by default
+        ``.ddh_cache_torch/`` at the repository root; ``""`` disables the
+        cache.  A hit whose entry lacks the io maps computes them when
+        ``want_io`` is set and saves the entry again."""
+        if cache_dir is None:
+            cache_dir = os.environ.get("CUDDH_CACHE_DIR", DEFAULT_CACHE_DIR)
+        self._cache_dir = cache_dir or None
+        stats: dict = {"cache_hit": False, "cache_dir": self._cache_dir}
+        dev = self.gmask.device
         t0 = time.perf_counter()
+        if cache_dir and self.try_load_precomputed(cache_dir):
+            _sync(dev)
+            stats["cache_hit"] = True
+            stats["load_seconds"] = time.perf_counter() - t0
+            if self.io is None and want_io:
+                t0 = time.perf_counter()
+                io = self.precompute_io_maps()
+                _sync(dev)
+                stats["io_seconds"] = time.perf_counter() - t0
+                stats.update(self.io_stats)
+                if io is not None:
+                    self.save_precomputed(cache_dir)
+            return stats
         self.precompute_transfer()
         stats["transfer_seconds"] = time.perf_counter() - t0
         stats.update(self.transfer_stats)
         if want_io:
             t0 = time.perf_counter()
             self.precompute_io_maps()
-            _sync(self.gmask.device)
+            _sync(dev)
             stats["io_seconds"] = time.perf_counter() - t0
             stats.update(self.io_stats)
+        if cache_dir:
+            self.save_precomputed(cache_dir)
         return stats
+
+    # --------------------------------------------------------------- two-level
+
+    def make_coarse(self, n_dir: int = 4, domains_per_super: int = 16, ridge: float = 1e-8,
+                    method: str = "direct", solve_m: int = 40, solve_maxit: int = 4,
+                    solve_tol: float = 1e-3, ortho: bool = True):
+        """Build (and keep) the two-level plane-wave coarse space from the
+        transfer stack (``prepare`` first); see ``solvers/coarse.py``.
+        ``method="direct"`` keeps a dense inverse, ``"iterative"`` the
+        block-sparse form solved by block-Jacobi GMRES (``solve_*``, with
+        ``ortho``).  A space with the same parameters, built before or loaded
+        by ``prepare``, is returned as it is; a new one is saved in the cache
+        directory ``prepare`` used."""
+        from .coarse import build_coarse_space, build_coarse_space_sparse
+
+        if method not in ("direct", "iterative"):
+            raise ValueError("method must be 'direct' or 'iterative'")
+        self.coarse_solve = (int(solve_m), int(solve_maxit), float(solve_tol))
+        iterative = method == "iterative"
+        meta = (float(n_dir), float(domains_per_super), float(ridge), float(iterative),
+                float(ortho if iterative else 0.0))
+        if self.coarse_space is not None and self._coarse_meta == meta:
+            return self.coarse_space
+        if iterative:
+            self.coarse_space = build_coarse_space_sparse(
+                self, n_dir=n_dir, domains_per_super=domains_per_super, ridge=ridge, ortho=ortho)
+        else:
+            self.coarse_space = build_coarse_space(
+                self, n_dir=n_dir, domains_per_super=domains_per_super, ridge=ridge)
+        self._coarse_meta = meta
+        if self._cache_dir:
+            self.save_precomputed(self._cache_dir)
+        return self.coarse_space
+
+    def coarse_correct(self, v: torch.Tensor) -> torch.Tensor:
+        """q = Z E^{-1} Z^T v: the coarse component of the correction."""
+        from .coarse import coarse_apply
+
+        sm, smx, stl = self.coarse_solve
+        return coarse_apply(self.coarse_space, self.params, v, self.n_own,
+                            solve_m=sm, solve_maxit=smx, solve_tol=stl)
 
     def solver(self, m: int, maxit: int, tol: float, gmres_opts: dict | None = None,
                block: bool = False, vmapped: bool = False, coarse: str | None = None):
@@ -775,14 +1001,21 @@ class DDH(nn.Module):
         block-Krylov space; ``reorth`` is its one option), ``vmapped`` runs
         ``gmres_lockstep`` (each source its own space, as a solo solve).
         Each batched rhs, matvec and postprocess is one apply over the K
-        ndom subdomain rows.  The coarse space is not ported yet: a
-        ``coarse`` solver raises."""
+        ndom subdomain rows.
+
+        ``coarse="additive"`` or ``"multiplicative"`` (after ``make_coarse``)
+        runs ``fgmres`` on the action, right-preconditioned by the coarse
+        correction: P v = v + q or q + v - A q with q = ``coarse_correct(v)``
+        (``gmres_opts`` do not apply); it takes one forcing (``block`` and
+        ``vmapped`` do not compose with it)."""
+        if coarse and self.coarse_space is None:
+            raise ValueError("coarse solver requested but make_coarse() not run")
+        if coarse not in (None, "additive", "multiplicative"):
+            raise ValueError("coarse must be None, 'additive', or 'multiplicative'")
         if coarse:
-            if block:
-                raise ValueError("block=True does not compose with coarse yet")
-            raise NotImplementedError(
-                "coarse: the two-level coarse space is not ported yet (ROADMAP queue 1)"
-            )
+            if block or vmapped:
+                raise ValueError("block=True or vmapped=True does not compose with coarse yet")
+            return self._coarse_solver(m, maxit, tol, coarse)
         opts = dict(gmres_opts or {})
         if block:
             def run_block(bs: torch.Tensor) -> tuple[BlockGmresResult, torch.Tensor]:
@@ -799,6 +1032,21 @@ class DDH(nn.Module):
 
         def run(b: torch.Tensor) -> tuple[GmresResult, torch.Tensor]:
             out = gmres(self.action, self.rhs(b), m=m, maxit=maxit, tol=tol, **opts)
+            return out, self.postprocess(out.x, b)
+
+        return run
+
+    def _coarse_solver(self, m: int, maxit: int, tol: float, coarse: str):
+        """The two-level solve of ``solver(coarse=...)``."""
+        def P(v: torch.Tensor) -> torch.Tensor:
+            q = self.coarse_correct(v)
+            if coarse == "multiplicative":
+                # the residual sweep q + (v - A q): one more action per step
+                return q + v - self.action(q)
+            return v + q
+
+        def run(b: torch.Tensor) -> tuple[GmresResult, torch.Tensor]:
+            out = fgmres(self.action, self.rhs(b), P, m=m, maxit=maxit, tol=tol)
             return out, self.postprocess(out.x, b)
 
         return run
@@ -1234,3 +1482,147 @@ def ddh_postprocess_io(params: DDHParams, io: IOMaps, lam, f, g_ndof: int, n_own
     u = ga(io.Pu, x) + ga(io.Pul, tr)
     v = ga(io.Pv, x) + ga(io.Pvl, tr)
     return _unblock(_scatter_solution(params, u, v, g_ndof), f)
+
+
+# ------------------------------------------------------------- the patch io path
+
+
+class PatchIO(NamedTuple):
+    """Window-ordered io maps for grid-native numberings (the JAX
+    ``PatchIO``).
+
+    On a row-major grid DOF numbering every subdomain's global ids form one
+    (h, h) window at stride (s, s), so the forcing gather is one ``unfold``
+    and the solution assembly its transpose, one ``fold`` (an overlap-add
+    that each output element sums over its covering windows: no atomics).
+    The io matrices are permuted to window order once; ``_build_patch_io``
+    checks the window model against ``gI``.  Here nwin = h * h.
+    """
+
+    Rw: torch.Tensor  # (nu, 2pf, 2nwin)  [F; G] window columns -> traces
+    # the four postprocess maps as one grouped matrix [[Pu, Pul], [Pv, Pvl]]
+    # acting on z = [Fw; Gw; lam0; mu0]
+    Mw: torch.Tensor  # (nu, 2nwin, 2nwin + 2pf)
+    w_F: torch.Tensor  # (ndom, 2nwin) forcing weights of F and G, window order
+    m_w: torch.Tensor  # (ndom, 2nwin) solution weights of u and v, window order
+
+
+def _build_patch_io(space, params: DDHParams, io: IOMaps) -> tuple:
+    """(PatchIO, (H, W, h, s)) or (None, None).
+
+    Builds exactly when (a) the space's DOF coordinates are row-major
+    grid-ordered, (b) every subdomain's valid ``gI`` ids are one full
+    (h, h) window with a slot order shared by all subdomains, (c) the window
+    bases tile the grid row-major at a uniform stride s, and (d) h <= 2 s
+    (the JAX package's parity overlap-add needs it; its
+    ``_build_patch_io`` does not check it).  Everything is checked on the
+    host against ``gI``.
+    """
+    gI = params.gI.cpu().numpy()
+    ndom, pad = gI.shape
+    coords = np.asarray(space.coords)
+    if coords.shape[0] < 4:
+        return None, None
+    ys = coords[:, 1]
+    changes = np.nonzero(ys != ys[0])[0]
+    if changes.size == 0:
+        return None, None
+    W = int(changes[0])
+    if W <= 1 or coords.shape[0] % W:
+        return None, None
+    H = coords.shape[0] // W
+    valid = gI >= 0
+    nv = valid.sum(axis=1)
+    if not np.all(nv == nv[0]):
+        return None, None
+    nwin = int(nv[0])
+    if not (np.all(valid[:, :nwin]) and not np.any(valid[:, nwin:])):
+        return None, None
+    core = gI[:, :nwin].astype(np.int64)
+    base = core.min(axis=1)
+    rel = core - base[:, None]
+    if not np.all(rel == rel[0]):
+        return None, None
+    dr, dc = rel[0] // W, rel[0] % W
+    h, w = int(dr.max()) + 1, int(dc.max()) + 1
+    if h != w or h * w != nwin:
+        return None, None
+    wpos = dr * w + dc  # slot -> window-row-major position
+    if np.unique(wpos).size != nwin:
+        return None, None
+    br, bc = base // W, base % W
+    ubr, ubc = np.unique(br), np.unique(bc)
+    nby, nbx = ubr.size, ubc.size
+    if nby * nbx != ndom:
+        return None, None
+    sr = int(ubr[1] - ubr[0]) if nby > 1 else h
+    sc = int(ubc[1] - ubc[0]) if nbx > 1 else w
+    if sr != sc or np.any(np.diff(ubr) != sr) or np.any(np.diff(ubc) != sc):
+        return None, None
+    if ubr[0] != 0 or ubc[0] != 0 or ubr[-1] + h != H or ubc[-1] + w != W:
+        return None, None
+    if h > 2 * sr:
+        return None, None
+    # identity domain order: d == by * nbx + bx
+    if not (np.array_equal(br, np.repeat(ubr, nbx)) and np.array_equal(bc, np.tile(ubc, nby))):
+        return None, None
+
+    slot_of_w = np.empty(nwin, np.int64)
+    slot_of_w[wpos] = np.arange(nwin)  # window position -> slot
+    sw = torch.as_tensor(slot_of_w, device=io.Pu.device)
+
+    def in_cols(M):  # (..., 2pad) -> (..., 2nwin): [F; G] blocks in window order
+        return torch.cat([M[..., sw], M[..., pad + sw]], dim=-1)
+
+    def two(A):  # (ndom, pad) -> (ndom, 2nwin), the window weights twice
+        Aw = A.to(io.Pu.dtype)[:, sw]
+        return torch.cat([Aw, Aw], dim=1).contiguous()
+
+    Mu = torch.cat([in_cols(io.Pu[:, sw, :]), io.Pul[:, sw, :]], dim=-1)
+    Mv = torch.cat([in_cols(io.Pv[:, sw, :]), io.Pvl[:, sw, :]], dim=-1)
+    pio = PatchIO(
+        Rw=in_cols(io.R).contiguous(),
+        Mw=torch.cat([Mu, Mv], dim=1).contiguous(),
+        w_F=two(params.F_weight),
+        m_w=two(params.m_gmi),
+    )
+    return pio, (H, W, h, sr)
+
+
+def _patch_extract(x: torch.Tensor, H: int, W: int, h: int, s: int) -> torch.Tensor:
+    """(K, 2, H*W) -> (K, 2 h h, nby * nbx): every (h, h) window at stride
+    s, features ordered (channel, window-row-major), windows row-major."""
+    return torch.nn.functional.unfold(x.reshape(x.shape[0], 2, H, W), (h, h), stride=s)
+
+
+def _patch_combine(uv: torch.Tensor, H: int, W: int, h: int, s: int) -> torch.Tensor:
+    """Transpose of ``_patch_extract``: overlap-add (K, 2 h h, nby * nbx)
+    back to (K, 2 H*W)."""
+    y = torch.nn.functional.fold(uv, (H, W), (h, h), stride=s)
+    return y.reshape(uv.shape[0], 2 * H * W)
+
+
+def ddh_rhs_io_patch(params: DDHParams, io: IOMaps, pio: PatchIO, f, g_ndof: int,
+                     n_lambda: int, pshape: tuple):
+    """``ddh_rhs_io`` with the forcing gather as one patch extraction."""
+    H, W, h, s = pshape
+    f2 = _block(f).to(pio.w_F.dtype)
+    xin = _patch_extract(f2.reshape(f2.shape[0], 2, g_ndof), H, W, h, s).transpose(1, 2)
+    w = _group_apply(pio.Rw, xin * pio.w_F, io.onehot, io.maj, io.spec_idx)
+    pf = params.Hf.shape[1]
+    return _unblock(_b1_scatter(params, -w[..., :pf], w[..., pf:], n_lambda), f)
+
+
+def ddh_postprocess_io_patch(params: DDHParams, io: IOMaps, pio: PatchIO, lam, f,
+                             g_ndof: int, n_own: int, pshape: tuple):
+    """``ddh_postprocess_io`` with the patch extraction of the forcing, one
+    grouped product of the fused maps, and the mass-weighted assembly as the
+    patch transpose (overlap-add)."""
+    H, W, h, s = pshape
+    lam2 = _block(lam)
+    f2 = _block(f).to(pio.w_F.dtype)
+    xin = _patch_extract(f2.reshape(f2.shape[0], 2, g_ndof), H, W, h, s).transpose(1, 2)
+    lam0, mu0 = _read_traces(params, lam2, lam2.shape[1] // 2, n_own)
+    z = torch.cat([xin * pio.w_F, lam0.to(xin.dtype), mu0.to(xin.dtype)], dim=2)
+    uv = _group_apply(pio.Mw, z, io.onehot, io.maj, io.spec_idx) * pio.m_w  # [u_w | v_w]
+    return _unblock(_patch_combine(uv.transpose(1, 2), H, W, h, s), f)

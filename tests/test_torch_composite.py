@@ -37,6 +37,16 @@ from cuddhelmholtz_tpu_torch.utils.basis import Basis
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _no_setup_cache():
+    """``prepare`` here neither reads nor writes a setup cache (in either
+    package)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("CUDDH_CACHE_DIR", "")
+        yield
+
+
 NX = 8
 SMALL = dict(nx=NX, m=10, maxit=30, inner_maxit=2)
 DIRECT_TOL = 1e-5

@@ -57,6 +57,16 @@ from cuddhelmholtz_tpu_torch.utils.basis import Basis
 # and beside other busy test processes it slows these tests a hundredfold.
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _no_setup_cache():
+    """``prepare`` here neither reads nor writes a setup cache (in either
+    package)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("CUDDH_CACHE_DIR", "")
+        yield
+
+
 NX, BLOCK = 16, 32
 OMEGA = 2 * np.pi * 12.8  # nt = 100 at nx = 16
 L1_DOMAINS, L1_OMEGA_SCALE = 16, 48.0  # nt = 27 on the once-refined mesh
@@ -343,9 +353,20 @@ def test_streamed_matches_resident_at_pad_176(cuda):
 
 
 @pytest.mark.parametrize("flag", [["--coarse", "additive"]])
-def test_large_unstructured_refuses_unported_options(flag):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        large_unstructured.main(["--levels", "1", "--domains", "4", *flag])
+def test_large_unstructured_refuses_unported_options(flag, tmp_path):
+    """``--coarse`` is ported now: ``--levels 1 --domains 4 --deg 1 --coarse
+    additive`` runs the two-level lambda-solve and its record has a
+    ``coarse`` entry (the iterative space, 4 directions, 4 subdomains per
+    superdomain: one superdomain of 2 x 9 modes)."""
+    out = tmp_path / "rec.jsonl"
+    large_unstructured.main(["--levels", "1", "--domains", "4", "--deg", "1", *flag,
+                             "--device", "cpu", "--out", str(out)])
+    rec = json.loads(out.read_text().splitlines()[0])
+    assert rec["success"] and rec["case"] == "unstructured_L1_coarse_addi"
+    coarse = rec["coarse"]
+    assert (coarse["mode"], coarse["n_dir"], coarse["dps"], coarse["nc"]) == (
+        "additive", 4, 4, 18)
+    assert coarse["build_seconds"] >= 0.0 and rec["ctor_seconds"] >= 0.0
 
 
 def test_large_unstructured_composite_solves(tmp_path):

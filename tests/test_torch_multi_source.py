@@ -27,6 +27,16 @@ from cuddhelmholtz_tpu_torch.utils.basis import Basis
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _no_setup_cache():
+    """``prepare`` here neither reads nor writes a setup cache (in either
+    package)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("CUDDH_CACHE_DIR", "")
+        yield
+
+
 SMALL = dict(nx=16, deg=1, tol=1e-3)
 RUNS = {}  # (K, method, transfer) -> (JAX result, port result)
 

@@ -32,6 +32,16 @@ from cuddhelmholtz_tpu_torch.utils.quadrature import QuadratureRule
 # and beside other busy test processes it slows these tests a hundredfold.
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _no_setup_cache():
+    """``prepare`` here neither reads nor writes a setup cache (in either
+    package)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("CUDDH_CACHE_DIR", "")
+        yield
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NX, DEG, BLOCK = 8, 3, 8
 OMEGA = 2 * np.pi * NX / 2.5  # nt = 200 at the CFL-limited dt (test_ddh_oracle.py)
@@ -157,22 +167,23 @@ def test_params_from_jax_round_trip(pair):
 
 
 def test_run_ddh_unported_options_raise():
-    """The transfer path and the multi-source kind are ported now (they
-    run); the coarse space and the multi-device source sharding still
-    raise, naming the ROADMAP queue."""
+    """The transfer path, the multi-source kind and the coarse space are
+    ported now (they run); a coarse correction without the transfer path
+    is a ``ValueError`` as in the JAX package, and the multi-device source
+    sharding still raises, naming the ROADMAP queue."""
     res = run_ddh(nx=8, block_size=8, transfer=True, tol=1e-2, device="cpu")
     assert res.success and res.extra["ddh"].use_transfer
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="requires transfer=True"):
         run_ddh(nx=8, coarse="additive", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run_ddh_multi_source(nx=8, shard_sources=True, device="cpu")
 
 
 def test_port_imports_no_jax():
-    mods = ("examples.drivers", "examples.large_unstructured", "config", "mesh.io",
-            "mesh.refine", "spaces.ensemble", "solvers.ddh", "ops.cuda.wave_cycle",
-            "ops.stiffness", "ops.kron", "ops.structured", "models.poisson", "solvers.gmres",
-            "bench")
+    mods = ("examples.drivers", "examples.large_unstructured", "examples.coarse_study",
+            "config", "mesh.io", "mesh.refine", "spaces.ensemble", "solvers.ddh",
+            "solvers.coarse", "ops.cuda.wave_cycle", "ops.stiffness", "ops.kron",
+            "ops.structured", "models.poisson", "solvers.gmres", "bench")
     code = ("import sys; " + "; ".join(f"import cuddhelmholtz_tpu_torch.{m}" for m in mods)
             + "; assert 'jax' not in sys.modules; assert 'cuddhelmholtz_tpu' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)

@@ -34,6 +34,16 @@ from cuddhelmholtz_tpu_torch.utils.basis import Basis
 # and beside other busy test processes it slows these tests a hundredfold.
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _no_setup_cache():
+    """``prepare`` here neither reads nor writes a setup cache (in either
+    package)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("CUDDH_CACHE_DIR", "")
+        yield
+
+
 OMEGA = DDH_UNSTRUCTURED_SQUARE.omega
 JCFG = next(c for c in BASELINE_CONFIGS if c.name == "ddh_unstructured_square")
 
