@@ -114,10 +114,34 @@ subprocesses too.
 24. ``large_unstructured --levels 3 --domains 256 --coarse multiplicative``
    through ``run_case``: success in <= 21 restarts (phase 9's JAX 18 + 3),
    only the sparse grouped kernel launched.
+25. A wave-speed inversion at the flagship problem (``_fwi_run``: nx 128,
+   deg 3, 296,450 coupled unknowns, the true model the nodal wave speed of
+   ``run_helmholtz_ddh``, receivers at the boundary face DOFs of u and v,
+   start model a0 = 1): every solve of the inversion through
+   ``ddh_solve_hook(m=20, maxit=100, tol=1e-8)`` with its DDH frozen at a0
+   (1,024 subdomains, ``prepare(want_io=True)``): the misfit gradient at a0
+   twice (bitwise the same), a central difference along a smooth unit
+   direction (within 1e-3 of g.v) and ``invert_wavespeed(steps=2)`` (the
+   loss falls).  The observed data come from the same hook on a DDH frozen
+   at the true model; the hook frozen at a0 stalls on that operator, which
+   is recorded at maxit 10.  Each checked solve succeeds with a true fp64
+   relative residual <= 1e-8 recomputed with the template's operator; K1
+   launches four times, the probes of the two ``prepare``s (sparse layout
+   (a)), and never in a solve.
+26. The host-loop solvers at nx 128 (``_host_loop_run``):
+   ``run_helmholtz(maxit=10, max_seconds=3600, verbose=2)`` gives phase 14's
+   9 / 1,810 and history bitwise with 10 restart times;
+   ``run_helmholtz(maxit=10_000, max_seconds=5)`` stops at the first restart
+   that ends past 5 s; LGMRES(200, 3) with maxit 10 beside GMRES(203) at the
+   same matvec count (recorded).
+27. ``python -m cuddhelmholtz_tpu_torch.examples.sweep --transfer 32 64 128``
+   and ``partition_study --nx 32`` in subprocesses (``_studies_run``):
+   every record succeeds, the sweep's nx 128 record takes phase 5's counts;
+   their kernel launches are read at each subprocess's end.
 Every comparison holds a kernel within 2e-4 of the plain cycle relative to
 the max of u and v, with padded slots exactly 0.  The main-path runs
-(phases 3, 5, 6, 7, 9, 12, 13, 16, 17, 18, 19, 21, 23, 24) must launch the
-sparse kernel and no dense one.
+(phases 3, 5, 6, 7, 9, 12, 13, 16, 17, 18, 19, 21, 23, 24, 25, 27) must
+launch the sparse kernel and no dense one.
 
 Every kernel count is set to 0 just before each main-path run and read just
 after; the ``launches`` of a kernel in the JSON line is the sum over those
@@ -540,6 +564,361 @@ def _subprocess_json(cmd: list[str], what: str, **env) -> dict:
     return json.loads(lines[0])
 
 
+FWI_EPS = 1e-3  # central-difference step along the unit direction v
+FWI_STEP = 1e-2  # descent step: the largest nodal change of a, relative to a0 = 1
+
+
+def _fwi_run(wc, dev, nx: int = 128, deg: int = 3) -> tuple[dict, dict]:
+    """Phase 25: a wave-speed inversion at the flagship problem (nx 128,
+    deg 3, omega 2 pi nx / 10, the point sources, the true model the nodal
+    ``wave_speed_coeff``, receivers at the boundary face DOFs of u and v,
+    start model a0 = 1).
+
+    Every solve of the inversion runs through ``ddh_solve_hook(m=20,
+    maxit=100, tol=1e-8)`` with its DDH frozen at a0: the misfit and its
+    gradient at a0 twice (bitwise the same), a central difference at a0
+    along a seeded smooth unit direction v (``FWI_EPS``), then
+    ``invert_wavespeed(steps=2)`` at ``step_size = FWI_STEP / max|g(a0)|``.
+    The observed data are solved through the same hook on a DDH frozen at
+    the true model: a DDH frozen at a0 stalls on the true model's operator
+    (its disc has a = 0.2, one fifth of P's), which the run records with
+    ``maxit=10`` (``stalled``: restarts and relative history).  Each solve
+    of the hooks at maxit 100 must succeed with a true fp64 relative
+    residual <= 1e-8, recomputed with the template's operator (checked as
+    it ends).  Returns
+    (summary, launches of the run): K1 runs only in the two ``prepare``s,
+    two probes each."""
+    import torch
+
+    from cuddhelmholtz_tpu_torch.examples.drivers import point_sources, wave_speed_coeff
+    from cuddhelmholtz_tpu_torch.mesh.mesh2d import Mesh2D
+    from cuddhelmholtz_tpu_torch.models.helmholtz import helmholtz_rhs, make_helmholtz_template
+    from cuddhelmholtz_tpu_torch.models.inverse import (
+        ddh_solve_hook,
+        invert_wavespeed,
+        misfit,
+        solve_helmholtz_diff,
+    )
+    from cuddhelmholtz_tpu_torch.ops.functional import linear_functional
+    from cuddhelmholtz_tpu_torch.ops.mass import apply_diag_inv_mass, make_diag_inv_mass_op
+    from cuddhelmholtz_tpu_torch.solvers.ddh import DDH
+    from cuddhelmholtz_tpu_torch.spaces.h1 import FaceSpace, H1Space
+    from cuddhelmholtz_tpu_torch.utils.basis import Basis
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    omega = 2 * np.pi * nx / 10
+    mesh = Mesh2D.uniform_rect(nx, -1.0, 1.0, nx, -1.0, 1.0)
+    fem = H1Space(mesh, Basis(deg + 1))
+    fs = FaceSpace(fem, mesh.boundary_edges)
+    n = fem.ndof
+    a_true = apply_diag_inv_mass(make_diag_inv_mass_op(fem),
+                                 linear_functional(fem, wave_speed_coeff)).numpy()
+    b = helmholtz_rhs(fem, lambda xy: point_sources(xy, omega)).to(dev)
+    obs_idx = torch.as_tensor(np.concatenate([fs.proj, n + fs.proj]), device=dev)
+    a0 = torch.ones(n, dtype=torch.float64, device=dev)
+    x, y = (fem.coords[:, 0] + 1) / 2, (fem.coords[:, 1] + 1) / 2
+    c = np.random.default_rng(25).standard_normal((3, 3))
+    v = sum(c[k, j] * np.sin((k + 1) * np.pi * x) * np.sin((j + 1) * np.pi * y)
+            for k in range(3) for j in range(3))
+    v = torch.as_tensor(v / np.linalg.norm(v), device=dev)
+    tmpl = make_helmholtz_template(fem, fs, device=dev)
+
+    wc.reset_launches()
+    t0 = time.perf_counter()
+    ddh = DDH(omega, np.ones(n), fem, nx=nx, ny=nx, device=dev)
+    pstats = ddh.prepare(cache_dir="", want_io=True)
+    sync()
+    setup_s = time.perf_counter() - t0
+    ddh_true = DDH(omega, a_true, fem, nx=nx, ny=nx, device=dev)
+    ddh_true.prepare(cache_dir="", want_io=True)
+    solves = []
+
+    def hooked(hook, required=True):
+        """``hook``, recording (and printing) each solve's restarts, P
+        applies, seconds and true fp64 relative residual with the
+        template's operator ``mv``; a ``required`` solve must succeed in
+        <= 100 restarts with that residual <= 1e-8."""
+        def solve(mv, rhs):
+            calls, t = hook.precond.calls, time.perf_counter()
+            xs = hook(mv, rhs)
+            sync()
+            out = hook.results[-1]
+            bn = torch.linalg.vector_norm(rhs)
+            solves.append({
+                "what": "", "restarts": out.num_iter, "matvecs": out.num_matvec,
+                "p": hook.precond.calls - calls, "seconds": time.perf_counter() - t,
+                "rel": float(torch.linalg.vector_norm(rhs - mv(xs)) / bn),
+                "success": out.success,
+                "history": (out.res_norm[: out.n_hist] / bn).tolist()})
+            e = solves[-1]
+            print(f"fwi solve {len(solves)}: {e['restarts']} restarts / {e['matvecs']} "
+                  f"matvecs, {e['p']} P, {e['seconds']:.2f} s, rel {e['rel']:.3e}", flush=True)
+            if required and not (e["success"] and e["restarts"] <= 100 and e["rel"] <= 1e-8):
+                _fail(f"fwi solve {len(solves)}: success={e['success']} in {e['restarts']} "
+                      f"restarts, true relative residual {e['rel']:.3e}; want success, "
+                      f"<= 100, <= 1e-8; relative history {e['history']}")
+            return xs
+
+        return solve
+
+    hook = ddh_solve_hook(ddh, m=20, maxit=100, tol=1e-8)
+    kw = {"solve": hooked(hook)}
+    a_true_t = torch.as_tensor(a_true, device=dev)
+    with torch.no_grad():
+        observed = solve_helmholtz_diff(
+            tmpl, omega, a_true_t, b,
+            solve=hooked(ddh_solve_hook(ddh_true, m=20, maxit=100, tol=1e-8)))[obs_idx]
+        solves[-1]["what"] = "observed data (P frozen at the true model)"
+        solve_helmholtz_diff(tmpl, omega, a_true_t, b,
+                             solve=hooked(ddh_solve_hook(ddh, m=20, maxit=10, tol=1e-8),
+                                          required=False))
+        stalled = solves.pop()
+        stalled["what"] = "true model, P frozen at a0, maxit 10 (recorded)"
+
+    def value_grad(a, what):
+        a = a.detach().requires_grad_()
+        sync()
+        t = time.perf_counter()
+        val = misfit(tmpl, omega, a, b, observed, obs_idx, **kw)
+        (g,) = torch.autograd.grad(val, a)
+        sync()
+        solves[-2]["what"], solves[-1]["what"] = f"{what} forward", f"{what} adjoint"
+        return float(val.detach()), g, time.perf_counter() - t
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    f0, g1, vg1 = value_grad(a0, "gradient 1 at a0")
+    _, g2, vg2 = value_grad(a0, "gradient 2 at a0")
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+    with torch.no_grad():
+        fp = float(misfit(tmpl, omega, a0 + FWI_EPS * v, b, observed, obs_idx, **kw))
+        solves[-1]["what"] = "f(a0 + eps v)"
+        fm = float(misfit(tmpl, omega, a0 - FWI_EPS * v, b, observed, obs_idx, **kw))
+        solves[-1]["what"] = "f(a0 - eps v)"
+    fd = (fp - fm) / (2 * FWI_EPS)
+    ad = float(g1 @ v)
+    step = FWI_STEP / float(g1.abs().max())
+    n0 = len(solves)
+    t = time.perf_counter()
+    a2, hist = invert_wavespeed(fem, fs, omega, b, observed, a0, obs_idx=obs_idx, steps=2,
+                                step_size=step, solve_kwargs=kw, device=dev)
+    inv_s = time.perf_counter() - t
+    for i, entry in enumerate(solves[n0:]):
+        entry["what"] = f"invert step {i // 2 + 1} {('forward', 'adjoint')[i % 2]}"
+    launches = dict(wc.wave_cycle.launches)
+    hist = hist.cpu().numpy()
+    summary = {
+        "nx": nx, "ndof": n, "unknowns": 2 * n, "omega": omega, "n_domains": ddh.n_domains,
+        "setup_seconds": setup_s, "prepare": pstats, "loss": hist.tolist(), "f0": f0,
+        "step_size": step, "directional": ad, "central_difference": fd,
+        "fd_rel": abs(ad - fd) / abs(fd), "grad_repeats_bitwise": torch.equal(g1, g2),
+        "grad_finite": bool(torch.isfinite(g1).all()), "grad_inf_norm": float(g1.abs().max()),
+        "value_grad_seconds": [vg1, vg2], "invert_seconds": inv_s,
+        "a_finite": bool(torch.isfinite(a2).all()), "peak_memory_bytes": peak,
+        "hist0_is_f0": float(hist[0]) == f0, "solves": solves, "stalled": stalled,
+        "ms_per_p": 1e3 * sum(e["seconds"] for e in solves) / sum(e["p"] for e in solves),
+    }
+    if not hist[1] < hist[0]:
+        _fail(f"fwi: the loss did not fall: {hist.tolist()}")
+    if not (summary["grad_finite"] and summary["a_finite"]):
+        _fail("fwi: non-finite gradient or model")
+    if not summary["fd_rel"] <= 1e-3:
+        _fail(f"fwi: g.v = {ad:.9e} against the central difference {fd:.9e} "
+              f"(rel {summary['fd_rel']:.2e} > 1e-3)")
+    if not summary["grad_repeats_bitwise"]:
+        _fail("fwi: two gradient evaluations at a0 differ")
+    return summary, launches
+
+
+def _host_loop_run(dev, res14, nx: int = 128) -> dict:
+    """Phase 26: the host-loop solvers on ``helmholtz_unpreconditioned``'s
+    problem (nx 128, fp32, GMRES(200) to 1e-6).  ``run_helmholtz(maxit=10,
+    max_seconds=3600, verbose=2)`` runs ``gmres_host`` and must give phase
+    14's counts and history (``res14``) bitwise, with 10 per-restart times;
+    ``run_helmholtz(maxit=10_000, max_seconds=5)`` must stop at the first
+    restart that ends past 5 s.  Then LGMRES(200, 3) with maxit 10 on the
+    same operator, beside GMRES(203) at the same matvec count (recorded,
+    nothing required)."""
+    import torch
+
+    from cuddhelmholtz_tpu_torch.examples.drivers import (
+        point_sources,
+        run_helmholtz,
+        wave_speed_coeff,
+    )
+    from cuddhelmholtz_tpu_torch.mesh.mesh2d import Mesh2D
+    from cuddhelmholtz_tpu_torch.models.helmholtz import (
+        apply_helmholtz,
+        helmholtz_rhs,
+        make_helmholtz_op,
+        project_coefficients,
+    )
+    from cuddhelmholtz_tpu_torch.ops.structured import GridH1Space
+    from cuddhelmholtz_tpu_torch.solvers.gmres import gmres, lgmres
+    from cuddhelmholtz_tpu_torch.spaces.h1 import FaceSpace
+    from cuddhelmholtz_tpu_torch.utils.basis import Basis
+
+    out = {}
+    kw = dict(nx=nx, dtype=torch.float32, device=dev)
+    host = run_helmholtz(maxit=10, max_seconds=3600, verbose=2, **kw)
+    times = host.extra["times"]
+    out["host"] = {"restarts": host.num_iter, "matvecs": host.num_matvec,
+                   "seconds": host.seconds, "times": times,
+                   "rel": float(host.res_norm[-1] / host.res_norm[0])}
+    if ((host.num_iter, host.num_matvec, host.success) != (res14.num_iter, res14.num_matvec,
+                                                            res14.success)
+            or not np.array_equal(host.res_norm, res14.res_norm) or len(times) != 10):
+        _fail(f"run_helmholtz(max_seconds=3600, verbose=2): {host.num_iter} / "
+              f"{host.num_matvec}, {len(times)} times; want phase 14's {res14.num_iter} / "
+              f"{res14.num_matvec} and history bitwise, 10 times")
+    clock = run_helmholtz(maxit=10_000, max_seconds=5, **kw)
+    times = clock.extra["times"]
+    out["clock"] = {"restarts": clock.num_iter, "matvecs": clock.num_matvec,
+                    "seconds": clock.seconds, "last_times": times[-3:],
+                    "rel": float(clock.res_norm[-1] / clock.res_norm[0])}
+    if not (times[-1] > 5 >= times[-2]) or clock.success:
+        _fail(f"run_helmholtz(max_seconds=5): times end {times[-3:]}, success "
+              f"{clock.success}; want the first restart past 5 s to end the solve")
+
+    omega = 2 * np.pi * nx / 10
+    mesh = Mesh2D.uniform_rect(nx, -1.0, 1.0, nx, -1.0, 1.0)
+    fem = GridH1Space(mesh, Basis(4), nx, nx)
+    fs = FaceSpace(fem, mesh.boundary_edges)
+    a2, af = project_coefficients(fem, fs, wave_speed_coeff, dtype=torch.float32)
+    b = helmholtz_rhs(fem, lambda xy: point_sources(xy, omega), dtype=torch.float32).to(dev)
+    op = make_helmholtz_op(omega, a2, af, fem, fs, dtype=torch.float32, device=dev)
+
+    def matvec(U):
+        return apply_helmholtz(op, U)
+
+    for name, solve in (("lgmres(m=200, k=3)", lambda: lgmres(matvec, b, m=200, k=3, maxit=10,
+                                                                 tol=1e-6)),
+                        ("gmres(m=203)", lambda: gmres(matvec, b, m=203, maxit=10, tol=1e-6))):
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        res = solve()
+        torch.cuda.synchronize(dev)
+        hist = res.res_norm[: res.n_hist].cpu().numpy()
+        out[name] = {"restarts": res.num_iter, "matvecs": res.num_matvec,
+                     "seconds": time.perf_counter() - t, "rel": float(hist[-1] / hist[0])}
+    return out
+
+
+def _studies_run(counts5) -> tuple[dict, dict]:
+    """Phase 27: ``python -m cuddhelmholtz_tpu_torch.examples.sweep
+    --transfer 32 64 128`` (every record successful, nx 128 at the flagship
+    transfer solve's counts ``counts5``) and ``partition_study --nx 32``
+    (every case successful), each in a subprocess.  Returns the records and
+    the two runs' kernel launches."""
+    lines, launches = _module_run("cuddhelmholtz_tpu_torch.examples.sweep",
+                                  ["--transfer", "32", "64", "128"], "sweep")
+    sweep = json.loads(lines[-1])
+    if [r["nx"] for r in sweep] != [32, 64, 128] or not all(r["success"] for r in sweep):
+        _fail(f"sweep: {lines[-1][:2000]}")
+    if (sweep[2]["iters"], sweep[2]["matvecs"]) != counts5:
+        _fail(f"sweep nx 128: {sweep[2]['iters']} / {sweep[2]['matvecs']}; want phase 5's "
+              f"{counts5}")
+    lines, more = _module_run("cuddhelmholtz_tpu_torch.examples.partition_study",
+                              ["--nx", "32"], "partition study")
+    cases = [json.loads(ln) for ln in lines if ln.startswith("{")]
+    if len(cases) != 5 or not all(c["success"] for c in cases):
+        _fail(f"partition study: {len(cases)} cases, successes {[c['success'] for c in cases]}")
+    return {"sweep": sweep, "partition": cases}, {k: launches[k] + more[k] for k in launches}
+
+
+def _module_run(module: str, args: list[str], what: str) -> tuple[list[str], dict]:
+    """Run ``python -m module args`` from the repository root as ``-m``
+    does (``runpy``), in a fresh process whose kernel counts start at 0; it
+    must exit 0.  Returns its stdout lines and the kernel launches it made
+    (read at its end)."""
+    code = "\n".join([
+        "import json, runpy, sys",
+        "from cuddhelmholtz_tpu_torch.ops.cuda import wave_cycle as wc",
+        f"sys.argv = [{module!r}] + sys.argv[1:]",
+        "try:",
+        f"    runpy.run_module({module!r}, run_name='__main__', alter_sys=True)",
+        "except SystemExit as e:",
+        "    if e.code not in (0, None):",
+        "        raise",
+        "print('LAUNCHES ' + json.dumps(wc.wave_cycle.launches), file=sys.stderr)",
+    ])
+    root = os.path.dirname(os.path.abspath(__file__))
+    p = subprocess.run([sys.executable, "-c", code, *args], capture_output=True, text=True,
+                       timeout=900, cwd=root)
+    tail = [ln for ln in p.stderr.splitlines() if ln.startswith("LAUNCHES ")]
+    if p.returncode != 0 or not tail:
+        _fail(f"{what} exited {p.returncode}: {p.stdout[-2000:]} {p.stderr[-2000:]}")
+    return p.stdout.splitlines(), json.loads(tail[-1][len("LAUNCHES "):])
+
+
+def _phases_25_to_27(wc, dev, res14, counts5, total) -> None:
+    """Phases 25-27 (``_fwi_run``, ``_host_loop_run``, ``_studies_run``),
+    with their prints and launch checks; their launches are added to
+    ``total``.  ``res14`` is phase 14's ``helmholtz_unpreconditioned``
+    result, ``counts5`` phase 5's flagship transfer counts."""
+    # --- 25. wave-speed inversion at the flagship problem ------------------------
+    t25 = time.perf_counter()
+    fwi, launches = _fwi_run(wc, dev)
+    print(f"fwi: nx {fwi['nx']}, {fwi['unknowns']} unknowns, {fwi['n_domains']} subdomains; "
+          f"prepare {json.dumps(fwi['prepare'])}, setup {fwi['setup_seconds']:.2f} s; "
+          f"launches {launches}")
+    for e in fwi["solves"] + [fwi["stalled"]]:
+        print(f"fwi solve, {e['what']}: {e['restarts']} restarts / {e['matvecs']} matvecs, "
+              f"{e['p']} P, {e['seconds']:.2f} s, true relative residual {e['rel']:.3e}")
+    print(f"fwi: relative history of the stalled solve: "
+          f"{[float(f'{h:.4e}') for h in fwi['stalled']['history']]}")
+    print(f"fwi: loss {fwi['loss']} at step_size {fwi['step_size']:.6e} (FWI_STEP "
+          f"{FWI_STEP} / max|g| {fwi['grad_inf_norm']:.6e}); g.v {fwi['directional']:.12e}, "
+          f"central difference {fwi['central_difference']:.12e} (rel {fwi['fd_rel']:.2e}); "
+          f"gradient repeats bitwise {fwi['grad_repeats_bitwise']}; invert hist[0] == f(a0) "
+          f"{fwi['hist0_is_f0']}")
+    print(f"fwi: value and gradient {fwi['value_grad_seconds'][0]:.2f} s and "
+          f"{fwi['value_grad_seconds'][1]:.2f} s, invert_wavespeed(steps=2) "
+          f"{fwi['invert_seconds']:.2f} s, {fwi['ms_per_p']:.2f} ms per P (solve wall), "
+          f"peak device memory {fwi['peak_memory_bytes'] / 1e9:.3f} GB")
+    if launches != {**dict.fromkeys(launches, 0), "sparse_shared": 4}:
+        _fail(f"fwi: launches {launches}; want the sparse layout-(a) probes of the two "
+              "prepares, two each")
+    for k in total:
+        total[k] += launches[k]
+    print(f"phase 25: {time.perf_counter() - t25:.1f} s")
+
+    # --- 26. the host-loop solvers at nx 128 -------------------------------------
+    t26 = time.perf_counter()
+    hl = _host_loop_run(dev, res14)
+    print(f"run_helmholtz(maxit=10, max_seconds=3600, verbose=2): {hl['host']['restarts']} / "
+          f"{hl['host']['matvecs']} bitwise phase 14's, {hl['host']['seconds']:.2f} s, times "
+          f"{[round(t, 3) for t in hl['host']['times']]}")
+    c = hl["clock"]
+    print(f"run_helmholtz(maxit=10000, max_seconds=5): stopped after {c['restarts']} restarts "
+          f"/ {c['matvecs']} matvecs, times end {c['last_times']}, rel {c['rel']:.6f}")
+    for name in ("lgmres(m=200, k=3)", "gmres(m=203)"):
+        r = hl[name]
+        print(f"{name}, maxit 10: {r['restarts']} / {r['matvecs']}, final relative residual "
+              f"{r['rel']:.6e}, {r['seconds']:.2f} s")
+    print(f"phase 26: {time.perf_counter() - t26:.1f} s")
+
+    # --- 27. the sweep and the partition study in subprocesses -------------------
+    t27 = time.perf_counter()
+    st, launches = _studies_run(counts5)
+    jax_tpu = {32: (10, 197), 64: (12, 247), 128: (18, 363)}
+    for r in st["sweep"]:
+        print(f"sweep nx {r['nx']}: {r['iters']} / {r['matvecs']} (JAX on the TPU, older code: "
+              f"{jax_tpu[r['nx']][0]} / {jax_tpu[r['nx']][1]}), solve {r['seconds']:.3f} s, "
+              f"setup {r['setup_seconds']:.2f} s, rel {r['final_rel_res']:.3e}")
+    for r in st["partition"]:
+        print(f"partition study: {json.dumps(r)}")
+    print(f"studies launches {launches}")
+    _only_sparse(launches, "shared", "studies (the sweep's probes)")
+    _only_sparse(launches, "grouped", "studies (the partition study's probes)")
+    for k in total:
+        total[k] += launches[k]
+    print(f"phase 27: {time.perf_counter() - t27:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -887,7 +1266,7 @@ def main() -> int:
     if (res.num_iter, res.num_matvec) != (14, 292) or not (res.success and rel <= 1e-6):
         _fail(f"poisson_structured: {res.num_iter} / {res.num_matvec}, rel {rel:.3e}; "
               "want 14 / 292 and <= 1e-6")
-    res = run_config(HELMHOLTZ_UNPRECONDITIONED, maxit=10, device=dev)
+    res = res14 = run_config(HELMHOLTZ_UNPRECONDITIONED, maxit=10, device=dev)
     rel = float(res.res_norm[-1] / res.res_norm[0])
     print(f"helmholtz_unpreconditioned (maxit 10): success={res.success} "
           f"restarts={res.num_iter} matvecs={res.num_matvec} rel {rel:.6f}, {res.seconds:.3f} s "
@@ -1281,7 +1660,9 @@ def main() -> int:
     for k in total:
         total[k] += launches[k]
     print(f"phase 24: {time.perf_counter() - t24:.1f} s")
-    print(f"phases 1-24: {time.perf_counter() - t_main:.1f} s")
+
+    _phases_25_to_27(wc, dev, res14, counts5, total)
+    print(f"phases 1-27: {time.perf_counter() - t_main:.1f} s")
     print(f"kernel launches over the main-path runs: {total}")
     for row in (r for rows in shapes.values() for r in rows):
         dense = (f" against {row['dense']} {row['dense_ms']:.3f} ms "

@@ -13,12 +13,14 @@ counterpart is easy to find:
               the default; the dense ``csrc/wave_cycle.cu``, S resident, and
               ``csrc/wave_cycle_streamed.cu``, S streamed) and their plain
               version
-  models/     the coupled Helmholtz operator, coefficient projection, Poisson
-  solvers/    GMRES(m) and flexible GMRES(m), the DDH preconditioner (direct
-              and transfer/io paths)
+  models/     the coupled Helmholtz operator, coefficient projection, Poisson,
+              and the differentiable solves (``inverse.py``: FWI misfit, its
+              adjoint gradient, ``invert_wavespeed``)
+  solvers/    GMRES(m) and its variants, the DDH preconditioner (direct
+              and transfer/io paths, two-level), ``implicit_solve``
   examples/   ``run_poisson``, ``run_helmholtz``, ``run_ddh``,
               ``run_helmholtz_ddh``, ``run_config``, ``large_unstructured``,
-              ``profile_solve``
+              ``profile_solve``, ``sweep``, ``partition_study``
 
 It imports ``torch`` and never ``jax``.  Host setup runs in NumPy float64 as
 the JAX package does; the DDH's device state is float32, the global
@@ -33,4 +35,8 @@ import torch as _torch
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 
+from .solvers.implicit import implicit_solve  # noqa: E402
+
 __version__ = "0.1.0"
+
+__all__ = ["implicit_solve"]

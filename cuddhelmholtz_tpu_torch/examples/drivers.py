@@ -43,8 +43,8 @@ from ..models.poisson import solve_poisson
 from ..ops.functional import linear_functional
 from ..ops.mass import apply_diag_inv_mass, make_diag_inv_mass_op
 from ..ops.structured import GridH1Space
-from ..solvers.ddh import DDH, _sync, check_device
-from ..solvers.gmres import fgmres, gmres
+from ..solvers.ddh import DDH, DDHPreconditioner, _sync, check_device
+from ..solvers.gmres import fgmres, gmres, gmres_host
 from ..spaces.ensemble import coordinate_bisection_labels
 from ..spaces.h1 import FaceSpace, H1Space
 from ..utils.basis import Basis
@@ -195,13 +195,10 @@ def run_helmholtz(
 ) -> DriverResult:
     """The unpreconditioned coupled-Helmholtz example: GMRES(m) on the
     coupled operator (on the default structured mesh a ``GridH1Space`` with
-    the kron fast path).  ``max_seconds`` and ``verbose`` need the
-    host-loop solver ``gmres_host``, which is not ported yet."""
-    if max_seconds is not None or verbose:
-        raise NotImplementedError(
-            "max_seconds/verbose: the host-loop GMRES gmres_host is not ported yet "
-            "(ROADMAP queue 1)"
-        )
+    the kron fast path).  Setting ``max_seconds`` (a wall-clock bound on the
+    solve, checked between restarts) or ``verbose`` switches to the
+    host-loop solver ``gmres_host``, whose per-restart wall times go to the
+    history file and to ``extra["times"]`` (None otherwise)."""
     device = check_device(device)
     omega = 2 * np.pi * nx / 10
     grid = None
@@ -216,9 +213,17 @@ def run_helmholtz(
     b = helmholtz_rhs(fem, lambda xy: point_sources(xy, omega), dtype=dtype).to(device)
     op = make_helmholtz_op(omega, a2, af, fem, fs, dtype=dtype, device=device)
 
+    def matvec(U):
+        return apply_helmholtz(op, U, grid=grid)
+
+    times = None
     _sync(device)
     t0 = time.perf_counter()
-    out = gmres(lambda U: apply_helmholtz(op, U, grid=grid), b, m=m, maxit=maxit, tol=tol)
+    if max_seconds is not None or verbose:
+        out, times = gmres_host(matvec, b, m=m, maxit=maxit, tol=tol, verbose=verbose,
+                                max_seconds=6 * 3600 if max_seconds is None else max_seconds)
+    else:
+        out = gmres(matvec, b, m=m, maxit=maxit, tol=tol)
     _sync(device)
     dt = time.perf_counter() - t0
     U = out.x.cpu().numpy()
@@ -226,7 +231,7 @@ def run_helmholtz(
     if out_dir:
         to_file(f"{out_dir}/xy.0000", fem.coords.T)
         to_file(f"{out_dir}/helmholtz.0000", U)
-        write_history(f"{out_dir}/h_{nx}_{deg}.txt", res_norm)
+        write_history(f"{out_dir}/h_{nx}_{deg}.txt", res_norm, times)
     return DriverResult(
         solution=U,
         coords=fem.coords,
@@ -235,7 +240,7 @@ def run_helmholtz(
         num_matvec=out.num_matvec,
         seconds=dt,
         success=out.success,
-        extra={"omega": omega, "ndof": fem.ndof},
+        extra={"omega": omega, "ndof": fem.ndof, "times": times},
     )
 
 
@@ -624,15 +629,7 @@ def run_helmholtz_ddh(
     _sync(device)
     setup_s = time.perf_counter() - t_setup
 
-    igo = inner_gmres_opts or {}
-    n_precond = [0]
-
-    def P(v):
-        # one bounded fp32 inner solve, no early exit: fixed work per apply
-        n_precond[0] += 1
-        v32 = v.to(torch.float32)
-        out = gmres(ddh.action, ddh.rhs(v32), m=inner_m, maxit=inner_maxit, tol=0.0, **igo)
-        return ddh.postprocess(out.x, v32).to(v.dtype)
+    P = DDHPreconditioner(ddh, inner_m, inner_maxit, inner_gmres_opts)
 
     use_refine = refine and dtype == torch.float64
     extra = {"omega": omega, "ndof": fem.ndof, "setup_seconds": setup_s,
@@ -673,7 +670,7 @@ def run_helmholtz_ddh(
             return x, outer_hist, inner_hists, tols, iters, mvs, steps, rn <= tol * bnrm, stagnated
 
         def run():
-            n_precond[0] = 0
+            P.calls = 0
             _sync(device)
             t0 = time.perf_counter()
             res = solve_once(b)
@@ -692,7 +689,7 @@ def run_helmholtz_ddh(
         num_iter, num_matvec, success = iters, mvs, ok
     else:
         def run():
-            n_precond[0] = 0
+            P.calls = 0
             _sync(device)
             t0 = time.perf_counter()
             out = fgmres(lambda U: apply_helmholtz(op, U), b, P, m=m, maxit=maxit, tol=tol)
@@ -707,7 +704,7 @@ def run_helmholtz_ddh(
         U = out.x.cpu().numpy()
         res_hist = out.res_norm[: out.n_hist].cpu().numpy()
         num_iter, num_matvec, success = out.num_iter, out.num_matvec, out.success
-    extra["n_precond"] = n_precond[0]
+    extra["n_precond"] = P.calls
 
     coords_out = fem.coords
     if structured:

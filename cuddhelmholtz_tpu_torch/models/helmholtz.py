@@ -10,9 +10,9 @@ the face-mass term; the sign flip of the second block symmetrises the
 system.  Three stiffness/mass paths, as in the JAX package: generic
 (gather + table assembly), structured (``grid=``, strided slices on a
 ``GridH1Space``) and kron (dense 1D factors; chosen by ``make_helmholtz_op``
-on a ``GridH1Space``).  The JAX package's differentiable templates
-(``HelmholtzTemplate``, ``helmholtz_op_with_coeff``) wait for the inverse
-problem.
+on a ``GridH1Space``).  ``HelmholtzTemplate`` and ``helmholtz_op_with_coeff``
+build the generic operator as a differentiable torch function of the nodal
+coefficients and omega (``models/inverse.py``).
 """
 
 from __future__ import annotations
@@ -38,6 +38,7 @@ from ..ops.kron import (
     make_kron_mass_op,
     make_kron_stiffness_op,
 )
+from ..ops.face_mass import face_mass_op_with_coeff
 from ..ops.mass import (
     MassOp,
     apply_diag_inv_mass,
@@ -45,6 +46,8 @@ from ..ops.mass import (
     assembly_table,
     make_diag_inv_mass_op,
     make_mass_op,
+    mass_op_with_coeff,
+    variable_coeff_n_quad,
 )
 from ..ops.stiffness import StiffnessOp, apply_stiffness, make_stiffness_op
 from ..ops.structured import GridH1Space, apply_mass_structured, apply_stiffness_structured
@@ -60,7 +63,7 @@ class HelmholtzOp(NamedTuple):
     mass: MassOp | None  # weighted by a^2; None when kron supersedes it
     face_mass: FaceMassOp  # weighted by a
     face_proj: torch.Tensor  # (fdof,) int64 global indices of face DOFs
-    omega: float
+    omega: float | torch.Tensor  # a 0-d tensor where it is differentiated
     ndof: int
     kron_stiffness: KronStiffnessOp | None = None
     kron_mass: KronMassOp | None = None
@@ -137,6 +140,54 @@ def apply_helmholtz(op: HelmholtzOp, U: torch.Tensor, grid: tuple | None = None)
     return torch.cat([Au, Av])
 
 
+class HelmholtzTemplate(NamedTuple):
+    """Coefficient-free Helmholtz data for differentiable rebuilds: the
+    generic stiffness and UNIT-coefficient mass and face-mass operators
+    collocated at the variable-coefficient quadrature size, which
+    ``helmholtz_op_with_coeff`` re-weights."""
+
+    stiffness: StiffnessOp
+    mass_unit: MassOp
+    face_mass_unit: FaceMassOp
+    face_proj: torch.Tensor
+    ndof: int
+
+
+def make_helmholtz_template(
+    space: H1Space, fs: FaceSpace, dtype=torch.float64, *, device="cpu"
+) -> HelmholtzTemplate:
+    nq = variable_coeff_n_quad(space)
+    return HelmholtzTemplate(
+        stiffness=make_stiffness_op(space, dtype=dtype, device=device),
+        mass_unit=make_mass_op(space, dtype=dtype, n_quad=nq, device=device),
+        face_mass_unit=make_face_mass_op(fs, dtype=dtype, n_quad=nq, device=device),
+        face_proj=torch.as_tensor(fs.proj, dtype=torch.int64, device=device),
+        ndof=space.ndof,
+    )
+
+
+def helmholtz_op_with_coeff(
+    tmpl: HelmholtzTemplate,
+    omega,
+    a2_nodal: torch.Tensor,
+    a_face_nodal: torch.Tensor,
+) -> HelmholtzOp:
+    """The coupled operator as a differentiable function of the nodal
+    coefficients ``a2_nodal`` (a^2 at the H1 nodes) and ``a_face_nodal``
+    (a at the face nodes), and of ``omega`` where it is a tensor (kept as
+    given, so dL/domega reaches it): the counterpart of
+    ``make_helmholtz_op`` for inverse problems, on the generic operators
+    (the kron path bakes its coefficient into a host-side layout)."""
+    return HelmholtzOp(
+        stiffness=tmpl.stiffness,
+        mass=mass_op_with_coeff(tmpl.mass_unit, a2_nodal),
+        face_mass=face_mass_op_with_coeff(tmpl.face_mass_unit, a_face_nodal),
+        face_proj=tmpl.face_proj,
+        omega=omega,
+        ndof=tmpl.ndof,
+    )
+
+
 def helmholtz_rhs(space: H1Space, f: Callable, dtype=torch.float64) -> torch.Tensor:
     """b = [(f, phi); 0] using the collocation functional."""
     bu = linear_functional(space, f, dtype=dtype)
@@ -166,38 +217,68 @@ def project_coefficients(
     return out.x.numpy(), outf.x.numpy()
 
 
+def _sub(arrays: dict, prefix: str) -> dict | None:
+    """The fields ``<prefix>.<f>`` of ``arrays`` as {f: array}, or None."""
+    d = {k.split(".", 1)[1]: v for k, v in arrays.items() if k.startswith(prefix + ".")}
+    return d or None
+
+
+def _ops_from_jax(arrays: dict, device, stiffness: str, mass: str, face_mass: str) -> tuple:
+    """(StiffnessOp, MassOp, FaceMassOp), each None where ``arrays`` lacks
+    it, from the JAX sub-ops' fields under the given prefixes; the assembly
+    tables are rebuilt from the index fields."""
+    def t(a, dtype=None):
+        return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+    ndof = int(arrays["ndof"])
+    s = m = f = None
+    if (d := _sub(arrays, stiffness)) is not None:
+        s = StiffnessOp(dofs=t(d["dofs"], torch.int64), P=t(d["P"]), D=t(d["D"]), A=t(d["A"]),
+                        B=t(d["B"]), C=t(d["C"]), ndof=ndof,
+                        table=t(assembly_table(d["dofs"], ndof)))
+    if (d := _sub(arrays, mass)) is not None:
+        m = MassOp(dofs=t(d["dofs"], torch.int64), P=t(d["P"]), wdetj=t(d["wdetj"]),
+                   ndof=ndof, table=t(assembly_table(d["dofs"], ndof)))
+    if (d := _sub(arrays, face_mass)) is not None:
+        fdof = int(d["fdof"])
+        f = FaceMassOp(fdofs=t(d["fdofs"], torch.int64), P=t(d["P"]), wds=t(d["wds"]),
+                       fdof=fdof, table=t(assembly_table(d["fdofs"], fdof)))
+    return s, m, f
+
+
 def helmholtz_op_from_jax(arrays: dict[str, np.ndarray], device) -> HelmholtzOp:
     """The port's ``HelmholtzOp`` from the JAX ``HelmholtzOp``'s fields as
     numpy arrays: keys ``omega``, ``ndof``, ``face_proj``, ``face_mass.<f>``
     and, where the JAX op has them, ``stiffness.<f>``, ``mass.<f>``,
     ``kron_stiffness.<f>`` and ``kron_mass.<f>`` (``<f>`` a field of the
     JAX sub-op).  The assembly tables are rebuilt from the index fields."""
-    def sub(prefix):
-        d = {k.split(".", 1)[1]: v for k, v in arrays.items() if k.startswith(prefix + ".")}
-        return d or None
-
-    def t(a, dtype=None):
-        return torch.as_tensor(np.array(a), dtype=dtype, device=device)
-
-    ndof = int(arrays["ndof"])
-    stiffness = mass = ks = km = None
-    if (d := sub("stiffness")) is not None:
-        table = t(assembly_table(d["dofs"], ndof))
-        stiffness = StiffnessOp(dofs=t(d["dofs"], torch.int64), P=t(d["P"]), D=t(d["D"]),
-                                A=t(d["A"]), B=t(d["B"]), C=t(d["C"]), ndof=ndof, table=table)
-    if (d := sub("mass")) is not None:
-        mass = MassOp(dofs=t(d["dofs"], torch.int64), P=t(d["P"]), wdetj=t(d["wdetj"]),
-                      ndof=ndof, table=t(assembly_table(d["dofs"], ndof)))
-    if (d := sub("kron_stiffness")) is not None:
-        ks = KronStiffnessOp(**{k: t(d[k]) for k in KronStiffnessOp._fields})
-    if (d := sub("kron_mass")) is not None:
-        km = KronMassOp(**{k: t(d[k]) for k in KronMassOp._fields})
-    fm = sub("face_mass")
-    fdof = int(fm["fdof"])
-    face_mass = FaceMassOp(fdofs=t(fm["fdofs"], torch.int64), P=t(fm["P"]), wds=t(fm["wds"]),
-                           fdof=fdof, table=t(assembly_table(fm["fdofs"], fdof)))
+    stiffness, mass, face_mass = _ops_from_jax(arrays, device, "stiffness", "mass", "face_mass")
+    ks = km = None
+    if (d := _sub(arrays, "kron_stiffness")) is not None:
+        ks = KronStiffnessOp(**{k: torch.as_tensor(np.array(d[k]), device=device)
+                                for k in KronStiffnessOp._fields})
+    if (d := _sub(arrays, "kron_mass")) is not None:
+        km = KronMassOp(**{k: torch.as_tensor(np.array(d[k]), device=device)
+                           for k in KronMassOp._fields})
     return HelmholtzOp(
         stiffness=stiffness, mass=mass, face_mass=face_mass,
-        face_proj=t(arrays["face_proj"], torch.int64), omega=float(arrays["omega"]),
-        ndof=ndof, kron_stiffness=ks, kron_mass=km,
+        face_proj=torch.as_tensor(np.array(arrays["face_proj"]), dtype=torch.int64,
+                                  device=device),
+        omega=float(arrays["omega"]), ndof=int(arrays["ndof"]), kron_stiffness=ks,
+        kron_mass=km,
+    )
+
+
+def helmholtz_template_from_jax(arrays: dict[str, np.ndarray], device) -> HelmholtzTemplate:
+    """The port's ``HelmholtzTemplate`` from the JAX ``HelmholtzTemplate``'s
+    fields as numpy arrays: keys ``ndof``, ``face_proj``, ``stiffness.<f>``,
+    ``mass_unit.<f>`` and ``face_mass_unit.<f>``, as for
+    ``helmholtz_op_from_jax``."""
+    stiffness, mass, face_mass = _ops_from_jax(arrays, device, "stiffness", "mass_unit",
+                                               "face_mass_unit")
+    return HelmholtzTemplate(
+        stiffness=stiffness, mass_unit=mass, face_mass_unit=face_mass,
+        face_proj=torch.as_tensor(np.array(arrays["face_proj"]), dtype=torch.int64,
+                                  device=device),
+        ndof=int(arrays["ndof"]),
     )

@@ -15,7 +15,7 @@ import torch
 
 from ..spaces.h1 import FaceSpace
 from ..utils.quadrature import QuadratureRule
-from .mass import assemble, assembly_table
+from .mass import assemble, assembly_table, gather
 
 
 class FaceMassOp(NamedTuple):
@@ -54,6 +54,14 @@ def make_face_mass_op(
         fdof=fs.fdof,
         table=torch.as_tensor(assembly_table(fs.face_dofs, fs.fdof), device=device),
     )
+
+
+def face_mass_op_with_coeff(base: FaceMassOp, coeff: torch.Tensor) -> FaceMassOp:
+    """Re-weight a unit-coefficient ``FaceMassOp`` by the face-space nodal
+    field ``coeff``, differentiably (see ``ops/mass.py::mass_op_with_coeff``;
+    ``base`` built with the variable-coefficient quadrature size)."""
+    a_f = gather(coeff, base.fdofs, base.table).to(base.P.dtype)  # (nf, nb)
+    return base._replace(wds=base.wds * (a_f @ base.P.T))
 
 
 def apply_face_mass(op: FaceMassOp, x: torch.Tensor) -> torch.Tensor:

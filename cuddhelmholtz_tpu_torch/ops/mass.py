@@ -47,6 +47,33 @@ def assemble(table: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
     return flat[table].sum(dim=1)
 
 
+class _Gather(torch.autograd.Function):
+    """x[idx] whose backward sums the gradient through an assembly table."""
+
+    @staticmethod
+    def forward(x, idx, table):
+        return x[idx]
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[2])
+
+    @staticmethod
+    def backward(ctx, grad):
+        (table,) = ctx.saved_tensors
+        return assemble(table, grad), None, None
+
+
+def gather(x: torch.Tensor, idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``x[idx]`` for an index array with repeated entries, differentiable
+    in ``x`` with a deterministic backward: the gradient of entry i of x is
+    ``assemble(table, grad)``, the sum over the positions ``table`` row i
+    names (``table = assembly_table(idx, x.shape[0])``) in a fixed order.
+    Plain indexing would sum by ``index_put_(accumulate=True)``, float
+    atomics in no fixed order on CUDA."""
+    return _Gather.apply(x, idx, table)
+
+
 class MassOp(NamedTuple):
     """Collocated mass-operator data.
 
@@ -117,6 +144,19 @@ def make_mass_op(
         ndof=space.ndof,
         table=table,
     )
+
+
+def mass_op_with_coeff(base: MassOp, coeff: torch.Tensor) -> MassOp:
+    """Re-weight a unit-coefficient ``MassOp`` by the nodal field ``coeff``,
+    differentiably: ``a_q = P a_e P^T`` per element, ``wdetj * a_q``.
+
+    ``base`` must be built by ``make_mass_op(space, n_quad=
+    variable_coeff_n_quad(space))`` so its quadrature is the
+    variable-coefficient rule; the result then equals
+    ``make_mass_op(space, coeff=...)``'s collocation."""
+    a_e = gather(coeff, base.dofs, base.table).to(base.P.dtype)  # (nel, iy, ix)
+    a_q = torch.einsum("qi,rj,eji->erq", base.P, base.P, a_e)
+    return base._replace(wdetj=base.wdetj * a_q)
 
 
 def gather_elements(dofs: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

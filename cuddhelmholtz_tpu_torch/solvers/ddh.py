@@ -1052,6 +1052,29 @@ class DDH(nn.Module):
         return run
 
 
+class DDHPreconditioner:
+    """P(v) for FGMRES on the coupled Helmholtz system: the DDH rhs of v,
+    one bounded fp32 lambda-GMRES (``inner_m``, ``inner_maxit`` restarts,
+    tol 0: no early exit, so the work per apply is fixed) and the DDH
+    postprocess, cast back to v's dtype.  The one P of
+    ``run_helmholtz_ddh`` and ``models/inverse.py::ddh_solve_hook``;
+    ``gmres_opts`` go to the inner GMRES and ``calls`` counts the
+    applications."""
+
+    def __init__(self, ddh: DDH, inner_m: int = 20, inner_maxit: int = 3,
+                 gmres_opts: dict | None = None):
+        self.ddh, self.inner_m, self.inner_maxit = ddh, inner_m, inner_maxit
+        self.gmres_opts = dict(gmres_opts or {})
+        self.calls = 0
+
+    def __call__(self, v: torch.Tensor) -> torch.Tensor:
+        self.calls += 1
+        v32 = v.to(torch.float32)
+        out = gmres(self.ddh.action, self.ddh.rhs(v32), m=self.inner_m,
+                    maxit=self.inner_maxit, tol=0.0, **self.gmres_opts)
+        return self.ddh.postprocess(out.x, v32).to(v.dtype)
+
+
 # ---------------------------------------------------------------- the apply
 #
 # Every apply takes one vector or a (K, n) block of K sources (``DDH.solver``

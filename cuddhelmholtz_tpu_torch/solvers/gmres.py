@@ -33,6 +33,14 @@ small least-squares algebra stay on ``b``'s device.  The JAX package's
 ``unroll`` option has no counterpart: the eager loop already reads only the
 populated rows of the basis.
 
+Two variants share the standard restart (``_restart``):
+
+  * ``gmres_host`` (JAX ``gmres_host``): ``gmres`` plus a wall-clock cutoff
+    checked after each restart, a ``ProgressBar`` (verbose 1) or one line
+    per restart (verbose >= 2), and the per-restart wall times;
+  * ``lgmres`` (JAX ``lgmres``): LGMRES(m, k), each restart augmented by the
+    k previous restart updates (Baker, Jessup & Manteuffel 2005).
+
 Two solvers take K right-hand sides at once, as rows of a (K, n) block,
 with one batched matvec (a (K, n) block to a (K, n) block) per step:
 
@@ -46,6 +54,9 @@ with one batched matvec (a (K, n) block to a (K, n) block) per step:
 
 from __future__ import annotations
 
+import math
+import sys
+import time
 from typing import Callable, NamedTuple
 
 import torch
@@ -83,27 +94,30 @@ def _basis(r: torch.Tensor, r_nrm: torch.Tensor, m: int, flexible: bool):
     return V, Z
 
 
-def _step_matvec(matvec, precond, V, Z, k):
-    """A v_k, or A P v_k with P v_k stored as Z[k]."""
+def _step_matvec(matvec, precond, V, Z, k, vin=None):
+    """A v_k; or, with the direction stored as Z[k], A P v_k (right
+    preconditioner ``precond``) or A d_k for ``d_k = vin(k, V)`` (the
+    counterpart of JAX's ``_arnoldi_step(vin=)``)."""
     if Z is None:
         return matvec(V[k])
-    Z[k] = precond(V[k])
+    Z[k] = precond(V[k]) if vin is None else vin(k, V)
     return matvec(Z[k])
 
 
-def _restart(matvec, r, r_nrm, m, tol_bnrm, nmv, reorth=True, precond=None):
-    """One Arnoldi/Givens cycle from residual ``r``; returns the correction
-    (V[:k] y, or Z[:k] y with a right preconditioner) and the matvec count."""
+def _restart(matvec, r, r_nrm, m, tol_bnrm, nmv, reorth=True, precond=None, vin=None):
+    """One Arnoldi/Givens cycle of at most m steps from residual ``r``;
+    returns the correction (V[:k] y, or Z[:k] y over the directions A was
+    applied to, with ``precond`` or ``vin``) and the matvec count."""
     dtype, dev = r.dtype, r.device
     m1 = m + 1
-    V, Z = _basis(r, r_nrm, m, precond is not None)
+    V, Z = _basis(r, r_nrm, m, precond is not None or vin is not None)
     Q = torch.eye(m1, dtype=dtype, device=dev)
     R = torch.zeros((m, m), dtype=dtype, device=dev)
     eta = torch.zeros(m1, dtype=dtype, device=dev)
     eta[0] = r_nrm
     k_used = 0
     for k in range(m):
-        w = _step_matvec(matvec, precond, V, Z, k)
+        w = _step_matvec(matvec, precond, V, Z, k, vin)
         nmv += 1
         # rows beyond k are zero, so only the populated rows are read
         h, w = _orthogonalize(V[: k + 1], w, reorth)
@@ -189,6 +203,13 @@ def _solve(matvec, b, x0, m, maxit, tol, reorth, deferred, precond) -> GmresResu
     )
 
 
+def _left(matvec, b, precond):
+    """(P A, P b) for a left preconditioner P, or (A, b) without one."""
+    if precond is None:
+        return matvec, b
+    return (lambda v: precond(matvec(v))), precond(b)
+
+
 def gmres(
     matvec: Callable,
     b: torch.Tensor,
@@ -205,14 +226,159 @@ def gmres(
     vector of the same dtype and device.  With ``precond`` P the
     left-preconditioned system P A x = P b is solved (tolerance relative to
     ||P b||)."""
-    if precond is not None:
-        op = matvec
-
-        def matvec(v):
-            return precond(op(v))
-
-        b = precond(b)
+    matvec, b = _left(matvec, b, precond)
     return _solve(matvec, b, x0, m, maxit, tol, reorth, deferred, None)
+
+
+class ProgressBar:
+    """Fixed-width progress bar for host-loop solves, advanced by
+    ``update(fraction)`` (``gmres_host`` at verbosity 1); the JAX package's
+    format, byte for byte."""
+
+    def __init__(self, width: int = 40):
+        self.width = width
+        self._drawn = -1
+
+    def update(self, fraction: float) -> None:
+        fraction = min(max(fraction, 0.0), 1.0)
+        n = int(self.width * fraction)
+        if n != self._drawn:
+            self._drawn = n
+            bar = "#" * n + "-" * (self.width - n)
+            sys.stdout.write(f"\r[{bar}] {100 * fraction:5.1f}%")
+            sys.stdout.flush()
+
+    def finish(self) -> None:
+        self.update(1.0)
+        sys.stdout.write("\n")
+        sys.stdout.flush()
+
+
+def gmres_host(
+    matvec: Callable,
+    b: torch.Tensor,
+    x0: torch.Tensor | None = None,
+    *,
+    m: int = 20,
+    maxit: int = 100,
+    tol: float = 1e-6,
+    precond: Callable | None = None,
+    max_seconds: float = 6 * 60 * 60,
+    verbose: int = 0,
+    reorth: bool = True,
+) -> tuple[GmresResult, list]:
+    """``gmres`` (standard mode) with a wall-clock cutoff checked after each
+    restart, progress output and the per-restart wall times.
+
+    Returns ``(result, times)``: ``times[i]`` is the wall time since the
+    first restart began when restart i ended (``times[0] = 0.0``).  The
+    solve stops once ``||r|| <= tol ||b||`` or ``r == 0``, after maxit - 1
+    restarts, or when a restart ends past ``max_seconds``.  ``verbose=1``
+    draws a ``ProgressBar`` driven by the larger of the log-residual
+    progress toward the target and ``it / maxit``; ``verbose >= 2`` prints
+    one ``iteration ... || rel. res. = ...`` line per restart.  The same
+    restarts as ``gmres``, so the counts and history are ``gmres``'s.
+    """
+    matvec, b = _left(matvec, b, precond)
+    x = torch.zeros_like(b) if x0 is None else x0
+    bnrm = norm(b)
+    tol_bnrm = torch.tensor(tol, dtype=b.dtype, device=b.device) * bnrm
+    tol_f, bnrm_f = float(tol_bnrm), float(bnrm)
+    r = b - matvec(x)
+    r_nrm = norm(r)
+    rn = float(r_nrm)
+    hist, times = [rn], [0.0]
+    it, nmv = 0, 1
+    t0 = time.perf_counter()
+    success = rn <= tol_f or rn == 0.0
+    bar = ProgressBar() if verbose == 1 else None
+    log_start = math.log(max(rn, 1e-300))
+    log_goal = math.log(max(tol_f, 1e-300))
+    while not success and it < maxit - 1:
+        dx, nmv = _restart(matvec, r, r_nrm, m, tol_bnrm, nmv, reorth)
+        x = x + dx
+        r = b - matvec(x)
+        nmv += 1
+        r_nrm = norm(r)
+        rn = float(r_nrm)
+        it += 1
+        hist.append(rn)
+        times.append(time.perf_counter() - t0)
+        if bar is not None:
+            prog = (log_start - math.log(max(rn, 1e-300))) / max(log_start - log_goal, 1e-300)
+            bar.update(max(prog, it / maxit))
+        elif verbose:
+            print(f"iteration {it:6d} / {maxit} || rel. res. = {rn / max(bnrm_f, 1e-300):.5e}",
+                  flush=True)
+        success = rn <= tol_f or rn == 0.0
+        if times[-1] > max_seconds:
+            break
+    if bar is not None:
+        bar.finish()
+    res = torch.full((maxit + 1,), float("nan"), dtype=b.dtype, device=b.device)
+    res[: len(hist)] = torch.tensor(hist, dtype=b.dtype)
+    return GmresResult(x=x, success=success, num_iter=it, num_matvec=nmv, res_norm=res,
+                       n_hist=len(hist)), times
+
+
+def lgmres(
+    matvec: Callable,
+    b: torch.Tensor,
+    x0: torch.Tensor | None = None,
+    *,
+    m: int = 20,
+    k: int = 3,
+    maxit: int = 100,
+    tol: float = 1e-6,
+    precond: Callable | None = None,
+    reorth: bool = True,
+) -> GmresResult:
+    """LGMRES(m, k): restarted GMRES whose approximation space is augmented
+    with the k previous restart updates (Baker, Jessup & Manteuffel 2005).
+
+    Each restart runs up to m + k Arnoldi steps (the standard early exit
+    applies).  Steps 0..m-1 apply A to the newest basis vector; step j >= m
+    applies A to the stored direction ``Z[j - m]`` while one exists (the
+    first restarts have fewer than k), else continues the Krylov recursion
+    on ``V[j]``.  The update is ``dx = sum_j y_j d_j`` over the directions
+    A was applied to, and ``Z`` rolls in ``dx / ||dx||`` after each restart.
+    ``k=0`` is ``gmres(m=m)`` step for step.  ``precond`` is a left
+    preconditioner, as in ``gmres``.  Counts as ``gmres``: m + k + 1
+    matvecs per full restart.
+    """
+    matvec, b = _left(matvec, b, precond)
+    dtype, dev = b.dtype, b.device
+    x = torch.zeros_like(b) if x0 is None else x0
+    tol_bnrm = torch.tensor(tol, dtype=dtype, device=dev) * norm(b)
+    r = b - matvec(x)
+    r_nrm = norm(r)
+    hist = torch.full((maxit + 1,), float("nan"), dtype=dtype, device=dev)
+    hist[0] = r_nrm
+    it, nmv = 0, 1
+    Z = torch.zeros((max(k, 1), b.shape[0]), dtype=dtype, device=dev)
+    kv = 0  # stored directions in use
+
+    def vin(j, V):
+        return Z[j - m] if m <= j < m + kv else V[j]
+
+    while bool(((r_nrm >= tol_bnrm) & (r_nrm > 0.0)).item()) and it < maxit - 1:
+        dx, nmv = _restart(matvec, r, r_nrm, m + k, tol_bnrm, nmv, reorth, vin=vin)
+        x = x + dx
+        r = b - matvec(x)
+        nmv += 1
+        r_nrm = norm(r)
+        it += 1
+        hist[it] = r_nrm
+        if k > 0:
+            dxn = norm(dx)
+            grew = bool((dxn > 0.0).item())
+            Z = torch.roll(Z, 1, dims=0)
+            Z[0] = dx / dxn if grew else 0.0
+            kv = min(kv + int(grew), k)
+    success = bool((r_nrm <= tol_bnrm).item())
+    return GmresResult(
+        x=x, success=success, num_iter=it, num_matvec=nmv, res_norm=hist, n_hist=it + 1
+    )
 
 
 def fgmres(

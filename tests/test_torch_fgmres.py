@@ -160,5 +160,9 @@ def test_run_helmholtz_matches_jax(tmp_path):
     _same_driver(got, want)
     hist = np.atleast_2d(np.loadtxt(tmp_path / "h_12_3.txt"))
     np.testing.assert_allclose(hist[:, 0], got.res_norm, rtol=1e-9)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_helmholtz(nx=4, max_seconds=1.0, device="cpu")
+    # max_seconds switches to the host-loop gmres_host: the same restarts
+    host = run_helmholtz(nx=4, max_seconds=60.0, device="cpu")
+    plain = run_helmholtz(nx=4, device="cpu")
+    assert (host.num_iter, host.num_matvec) == (plain.num_iter, plain.num_matvec)
+    assert np.array_equal(host.res_norm, plain.res_norm)
+    assert len(host.extra["times"]) == host.num_iter + 1

@@ -183,7 +183,9 @@ def test_port_imports_no_jax():
     mods = ("examples.drivers", "examples.large_unstructured", "examples.coarse_study",
             "config", "mesh.io", "mesh.refine", "spaces.ensemble", "solvers.ddh",
             "solvers.coarse", "ops.cuda.wave_cycle", "ops.stiffness", "ops.kron",
-            "ops.structured", "models.poisson", "solvers.gmres", "bench")
+            "ops.structured", "models.poisson", "solvers.gmres", "bench",
+            "solvers.implicit", "models.inverse", "examples.sweep",
+            "examples.partition_study")
     code = ("import sys; " + "; ".join(f"import cuddhelmholtz_tpu_torch.{m}" for m in mods)
             + "; assert 'jax' not in sys.modules; assert 'cuddhelmholtz_tpu' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
