@@ -138,9 +138,37 @@ subprocesses too.
    and ``partition_study --nx 32`` in subprocesses (``_studies_run``):
    every record succeeds, the sweep's nx 128 record takes phase 5's counts;
    their kernel launches are read at each subprocess's end.
+28. ``large_unstructured`` L4 (``_l4_run``: 4x refined square, 30,464
+   elements, 1,024 domains, pad 320, omega 107.656 as JAX): ``Mesh2D`` +
+   ``H1Space`` timed with the native topology and with ``CUDDH_NATIVE=0``
+   (the same tables); its io maps exceed the 1 GiB cap, so the solve runs
+   rhs and postprocess as wave cycles: restarts within one of JAX's 18 and
+   <= 20, grouped sparse launches only, a repeated solve launches exactly 2
+   and repeats bitwise, plain-cycle residual <= 1.2e-4, peak memory; then
+   the kernel against the plain cycle in layout (c) (the rhs's 1,024 rows)
+   and layout (b) (64 probe runs).  Then the L3 ``--control`` case (a
+   jittered 87x87 grid, 256 domains, L3's omega) through ``_transfer_run``:
+   within one restart of JAX's 28 / 572.
+29. ``examples/sharded_solve.py`` in one process per visible card (NCCL,
+   ``spawn_processes``): ``ShardedDDH``'s direct action, rhs and
+   postprocess within 2e-4 of ``DDH``'s, the flagship transfer solve
+   through the sharded rolled action within one restart of 18 / 366,
+   bitwise on repeat, plain-cycle residual <= 1.2e-4; every rank's K1
+   launches in ``ShardedDDH``'s calls alone (sparse layout (a) only: 3 in
+   the direct comparison, 4 in the two solves) are read from the record.
+30. The flagship transfer solve with ``DDH(rhs_split="mass")`` (plain-cycle
+   residual <= 1.2e-4, two probe launches) and ``run_ddh`` with
+   ``CUDDH_DEBUG=1`` (phase 5's counts, every check of ``_transfer_run``).
+31. ``run_ddh_multi_source(shard_sources=True)`` at ``ddh_multi_source_8``
+   under a one-rank NCCL group: the restarts, per-source matvecs and
+   solution of phase 18's replicated solve (within 1e-5).
+32. The bench's ``scaling`` key from phase 20 (NCCL records at every world
+   size the cards give), and ``python -m
+   cuddhelmholtz_tpu_torch.examples.scaling`` at nx 128 with and without
+   ``--transfer``; the direct rows launch K1 once per sharded matvec.
 Every comparison holds a kernel within 2e-4 of the plain cycle relative to
 the max of u and v, with padded slots exactly 0.  The main-path runs
-(phases 3, 5, 6, 7, 9, 12, 13, 16, 17, 18, 19, 21, 23, 24, 25, 27) must
+(phases 3, 5, 6, 7, 9, 12, 13, 16, 17, 18, 19, 21, 23, 24, 25, 27-32) must
 launch the sparse kernel and no dense one.
 
 Every kernel count is set to 0 just before each main-path run and read just
@@ -919,6 +947,337 @@ def _phases_25_to_27(wc, dev, res14, counts5, total) -> None:
     print(f"phase 27: {time.perf_counter() - t27:.1f} s")
 
 
+L4_DOMAINS = 1024
+L4_OMEGA_JAX = 107.656  # docs/artifacts/large_unstructured_L4.json (rounded there)
+L4_PROBE_RUNS = 64  # probe runs of L4's layout-(b) comparison (of 1,024)
+
+
+def _topology_seconds(mesh) -> dict:
+    """Seconds of ``Mesh2D`` + ``H1Space(Basis(4))`` on ``mesh``'s arrays with
+    the native topology and with ``CUDDH_NATIVE=0``; both must give the same
+    tables.  The library's build (first use) is timed apart."""
+    from cuddhelmholtz_tpu_torch import native
+    from cuddhelmholtz_tpu_torch.mesh.mesh2d import Mesh2D
+    from cuddhelmholtz_tpu_torch.spaces.h1 import H1Space
+    from cuddhelmholtz_tpu_torch.utils.basis import Basis
+
+    t0 = time.perf_counter()
+    native.library()
+    out = {"build_seconds": time.perf_counter() - t0}
+    tables = {}
+    try:
+        for flag in ("1", "0"):
+            os.environ["CUDDH_NATIVE"] = flag
+            t0 = time.perf_counter()
+            m = Mesh2D(mesh.vertices, mesh.elem_vertices)
+            f = H1Space(m, Basis(4))
+            out["native" if flag == "1" else "numpy"] = time.perf_counter() - t0
+            tables[flag] = (m.edge_vertices, m.edge_elements, m.edge_sides, m.edge_delta,
+                            f.dofs)
+    finally:
+        os.environ["CUDDH_NATIVE"] = "1"
+    if not all(np.array_equal(a, b) for a, b in zip(tables["1"], tables["0"])):
+        _fail("native topology: the native and NumPy tables differ")
+    return out
+
+
+def _l4_run(wc, dev, rng, shapes) -> tuple[dict, dict, dict]:
+    """Phase 28, L4: ``large_unstructured --levels 4 --domains 1024`` through
+    ``solve_case``.  Its io maps exceed ``precompute_io_maps``'s 1 GiB cap, so
+    rhs and postprocess run wave cycles (layout (c)): the run launches the
+    sparse grouped kernel for the probes and twice per solve.  Then the
+    kernel against the plain cycle: layout (c) on the rhs's 1,024 rows and
+    layout (b) on ``L4_PROBE_RUNS`` runs of probe rows, at the port's pad
+    320 (the JAX package pads the same 319 DOFs to 384).  Returns
+    (record, launches, {variant: (err, ms)} of both comparisons)."""
+    import torch
+
+    from cuddhelmholtz_tpu_torch.examples import large_unstructured as lu
+    from cuddhelmholtz_tpu_torch.examples.drivers import point_sources
+    from cuddhelmholtz_tpu_torch.mesh.io import load_unstructured_square
+    from cuddhelmholtz_tpu_torch.mesh.refine import refine_quad_mesh
+    from cuddhelmholtz_tpu_torch.models.helmholtz import helmholtz_rhs
+
+    t0 = time.perf_counter()
+    l4 = refine_quad_mesh(load_unstructured_square(), 4)
+    refine_s = time.perf_counter() - t0
+    topo = _topology_seconds(l4)
+    omega = 2 * np.pi / (5.0 * lu.median_h(l4))
+    print(f"L4 mesh: {l4.n_elem} elements, refined in {refine_s:.2f} s; omega {omega:.6f} "
+          f"(JAX {L4_OMEGA_JAX}); Mesh2D + H1Space: native {topo['native']:.3f} s, NumPy "
+          f"(CUDDH_NATIVE=0) {topo['numpy']:.3f} s, library build {topo['build_seconds']:.3f} s")
+    if abs(omega - L4_OMEGA_JAX) > 1e-3:
+        _fail(f"L4: omega {omega}, JAX {L4_OMEGA_JAX}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wc.reset_launches()
+    res = lu.solve_case(l4, L4_DOMAINS, 3, omega, 1e-4, device=dev)
+    launches = dict(wc.wave_cycle.launches)
+    peak = torch.cuda.max_memory_allocated()
+    rec = lu.case_record("unstructured_L4", l4, res)
+    rec.update(topology_seconds=topo, peak_memory_bytes=peak)
+    ddh = res.extra["ddh"]
+    b = helmholtz_rhs(ddh.space, lambda xy: point_sources(xy, omega)).to(dev)
+    wc.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out2, U2 = ddh.solver(20, 100, 1e-4)(b)
+    torch.cuda.synchronize()
+    again_s = time.perf_counter() - t0
+    again = dict(wc.wave_cycle.launches)
+    bitwise = (torch.equal(out2.x, res.extra["lam"])
+               and np.array_equal(U2.cpu().numpy(), res.solution))
+    resid = _plain_residual(wc, ddh, b, res.extra["lam"])
+    print(f"large_unstructured L4 record: {json.dumps(rec)}")
+    print(f"L4: io path {ddh.io_path}; launches during the run {launches}; repeated solve "
+          f"{again_s:.3f} s, launches {again}, bitwise {bitwise}; plain-cycle residual "
+          f"{resid:.3e}; peak device memory {peak / 1e9:.3f} GB")
+    # 319 DOFs at most per subdomain: the port pads to 320, the JAX package to 384
+    if (rec["pad"], rec["shared_S"], rec["nt"], rec["n_domains"]) != (320, False, 1283, 1024):
+        _fail(f"L4: pad {rec['pad']}, shared_S {rec['shared_S']}, nt {rec['nt']}, "
+              f"{rec['n_domains']} domains; want 320, False, 1283, 1024")
+    if ddh.io_path != "cycle" or res.extra["precompute"]["transfer_layout"] != "grouped":
+        _fail(f"L4: io path {ddh.io_path}, probes {res.extra['precompute']}; want the "
+              "cycle io path and grouped probes")
+    if not res.success or res.num_iter > 20 or abs(res.num_iter - 18) > 1:
+        _fail(f"L4: success={res.success}, {res.num_iter} restarts; want <= 20 and JAX's "
+              "18 +-1")
+    _only_sparse(launches, "grouped", "L4")
+    if again != {**dict.fromkeys(again, 0), "sparse_grouped": 2} or not bitwise:
+        _fail(f"L4: the repeated solve launched {again} (want 2: rhs, postprocess) or "
+              f"differs ({bitwise})")
+    if not resid <= 1.2e-4:
+        _fail(f"L4: plain-cycle residual {resid:.3e} > 1.2e-4")
+
+    # the kernel against the plain cycle at pad 320
+    p = ddh.params
+    gm = ddh.gmask.cpu().numpy()
+    Fc, Gc = _masked_normal(rng, gm, dev), _masked_normal(rng, gm, dev)
+    what = f"L4 layout (c), {ddh.n_domains} rows tiled x{wc.ROWS_PER_BLOCK}, pad {ddh.pad}"
+    res_c, plain_c, _ = _compare(wc, p, Fc, Gc, ddh.wh_maxit, ddh.gmask == 0, what,
+                                 ("sparse",), reps=1, form=ddh.S_sparse)
+    bound_c, by_c = _cycle_bound(ddh.S_sparse, 1, ddh.n_domains, ddh.pad, ddh.nt, ddh.wh_maxit)
+    print(f"{what}: bound {bound_c:.3f} ms ({by_c}) for the rows it computes")
+    uidx, _, nu = ddh._domain_groups()
+    c = 2 * ddh._fslot_np.shape[1]
+    c8 = -(-c // wc.ROWS_PER_BLOCK) * wc.ROWS_PER_BLOCK
+    ui = torch.as_tensor(uidx[:L4_PROBE_RUNS], device=dev)
+    pb = p._replace(S=p.S[ui].contiguous(), Ha=p.Ha[ui].repeat_interleave(c8, 0),
+                    inv_mi=p.inv_mi[ui].repeat_interleave(c8, 0))
+    form_b, form_ms_b = _form_ms(wc, pb.S)
+    bmask = ddh.gmask[ui].repeat_interleave(c8, 0)
+    bm = bmask.cpu().numpy()
+    Fb, Gb = _masked_normal(rng, bm, dev), _masked_normal(rng, bm, dev)
+    rows_b = len(ui) * c8
+    what = f"L4 layout (b), {len(ui)} probe runs of {c8} rows, pad {ddh.pad}"
+    res_b, plain_b, _ = _compare(wc, pb, Fb, Gb, ddh.wh_maxit, bmask == 0, what, ("sparse",),
+                                 reps=1, form=form_b, s_group_size=c8)
+    bound_b, by_b = _cycle_bound(form_b, c8, rows_b, ddh.pad, ddh.nt, ddh.wh_maxit)
+    _rates(what, _cycle_flop(form_b, c8, ddh.nt, ddh.wh_maxit), rows_b, ddh.pad, ddh.nt,
+           ddh.wh_maxit, res_b, bound_b, by_b)
+    shapes["sparse_grouped"].append({
+        "at": f"L4 transfer probe, {len(ui)} of {nu} runs of {c8} rows, pad {ddh.pad}, "
+              f"nt {ddh.nt}", "nnz": _nnz(form_b), "stride": form_b.stride,
+        "form_ms": form_ms_b, "ms": res_b["sparse"][1], "plain_ms": plain_b,
+        "bound_ms": bound_b, "bound_by": by_b,
+    })
+    shapes["sparse_grouped"].append({
+        "at": f"L4 rhs/postprocess (c), {ddh.n_domains} rows tiled x{wc.ROWS_PER_BLOCK}, "
+              f"pad {ddh.pad}", "nnz": _nnz(ddh.S_sparse), "stride": ddh.S_sparse.stride,
+        "form_ms": 1e3 * ddh.sparse_seconds, "ms": res_c["sparse"][1], "plain_ms": plain_c,
+        "bound_ms": bound_c, "bound_by": by_c,
+    })
+    rec["k1_ms_per_cycle"] = {"probe_b": res_b["sparse"][1], "probe_b_bound": bound_b,
+                              "rhs_c": res_c["sparse"][1], "rhs_c_bound": bound_c}
+    return rec, launches, {"b": res_b["sparse"], "c": res_c["sparse"]}
+
+
+def _phases_28_to_32(wc, dev, rng, counts5, ms18, bench20, lomega, total, shapes) -> dict:
+    """Phases 28-32; their launches are added to ``total`` and the
+    comparisons' (max abs error, ms) returned.  ``counts5`` is phase 5's
+    flagship transfer counts, ``ms18`` phase 18's multi-source result
+    (solution, restarts, per-source matvecs), ``bench20`` phase 20's bench
+    record, ``lomega`` phase 9's L3 omega."""
+    import torch
+    import torch.distributed as dist
+
+    from cuddhelmholtz_tpu_torch.config import DDH_MULTI_SOURCE_8 as mcfg
+    from cuddhelmholtz_tpu_torch.config import DDH_STRUCTURED as cfg
+    from cuddhelmholtz_tpu_torch.config import DDH_UNSTRUCTURED_SQUARE as ucfg
+    from cuddhelmholtz_tpu_torch.examples import large_unstructured as lu
+    from cuddhelmholtz_tpu_torch.examples import sharded_solve
+    from cuddhelmholtz_tpu_torch.examples.drivers import (
+        point_sources,
+        run_ddh,
+        run_ddh_multi_source,
+        wave_speed_coeff,
+    )
+    from cuddhelmholtz_tpu_torch.mesh.mesh2d import Mesh2D
+    from cuddhelmholtz_tpu_torch.mesh.refine import jittered_grid
+    from cuddhelmholtz_tpu_torch.models.helmholtz import helmholtz_rhs
+    from cuddhelmholtz_tpu_torch.ops.functional import linear_functional
+    from cuddhelmholtz_tpu_torch.ops.mass import apply_diag_inv_mass, make_diag_inv_mass_op
+    from cuddhelmholtz_tpu_torch.parallel import initialize_from_env, spawn_processes
+    from cuddhelmholtz_tpu_torch.solvers.ddh import DDH
+    from cuddhelmholtz_tpu_torch.spaces.h1 import H1Space
+    from cuddhelmholtz_tpu_torch.utils.basis import Basis
+
+    # --- 28. L4 at 1,024 domains and the L3 jittered control ----------------------
+    t28 = time.perf_counter()
+    rec4, launches, cmp4 = _l4_run(wc, dev, rng, shapes)
+    for k in total:
+        total[k] += launches[k]
+    torch.cuda.empty_cache()
+    nxj = int(round(np.sqrt(7616)))  # the L3 mesh's elements, as large_unstructured --control
+    ctrl = jittered_grid(nxj, nxj, amount=0.25, seed=1)
+    res, launches = _transfer_run(
+        wc, lambda: lu.solve_case(ctrl, 256, 3, lomega, ucfg.gmres.tol, device=dev),
+        f"large_unstructured L3 --control (jittered {nxj}x{nxj})",
+        max_restarts=ucfg.gmres.maxit, jax_matvecs=572, matvec_slack=ucfg.gmres.m + 1,
+        gm=ucfg.gmres, jax_restarts=28)
+    print(f"large_unstructured control record: "
+          f"{json.dumps(lu.case_record(f'jittered_{nxj}x{nxj}', ctrl, res))}")
+    _only_sparse(launches, "grouped", "L3 --control probes")
+    for k in total:
+        total[k] += launches[k]
+    del res
+    torch.cuda.empty_cache()
+    print(f"phase 28: {time.perf_counter() - t28:.1f} s")
+
+    # --- 29. ShardedDDH at the flagship, NCCL, every visible card ------------------
+    t29 = time.perf_counter()
+    world = torch.cuda.device_count()
+    outs = spawn_processes(sharded_solve.__file__, 1, world, "--nx", str(cfg.nx),
+                           timeout=600.0, device="cuda")
+    for rank, (rc, text) in enumerate(outs):
+        if rc != 0:
+            _fail(f"sharded solve: rank {rank} exited {rc}: {text[-3000:]}")
+    sh = json.loads(outs[0][1].strip().splitlines()[-1])
+    print(f"sharded solve (ShardedDDH, {sh['backend']}, world {sh['world']}): {json.dumps(sh)}")
+    if (sh["backend"], sh["world"], sh["rolled"]) != ("nccl", world, True):
+        _fail(f"sharded solve: backend {sh['backend']}, world {sh['world']}, rolled "
+              f"{sh['rolled']}; want nccl, {world}, True")
+    if max(sh["rel_action"], sh["rel_rhs"], sh["rel_postprocess"]) > 2e-4:
+        _fail(f"sharded solve: action / rhs / postprocess rel {sh['rel_action']:.3e} / "
+              f"{sh['rel_rhs']:.3e} / {sh['rel_postprocess']:.3e} (> 2e-4)")
+    if not sh["success"] or abs(sh["restarts"] - 18) > 1 or abs(sh["matvecs"] - 366) > 21:
+        _fail(f"sharded solve: success={sh['success']}, {sh['restarts']} / {sh['matvecs']}; "
+              "want JAX's 18 / 366 (+-1 restart)")
+    if not sh["bitwise"] or not sh["plain_residual"] <= 1.2e-4 or not sh["solution_finite"]:
+        _fail(f"sharded solve: bitwise {sh['bitwise']}, plain-cycle residual "
+              f"{sh['plain_residual']:.3e}, finite {sh['solution_finite']}")
+    # ShardedDDH's own launches on every rank: one each for the direct action,
+    # rhs and postprocess, then rhs and postprocess in each of the two solves
+    if sh["launches_direct"] != [{"sparse_shared": 3}] * world or \
+            sh["launches_solves"] != [{"sparse_shared": 4}] * world:
+        _fail(f"sharded solve: ShardedDDH launched {sh['launches_direct']} (direct) and "
+              f"{sh['launches_solves']} (two solves) per rank; want sparse layout (a) only, "
+              "3 and 4 on every rank")
+    for k, v in (*sh["launches_direct"][0].items(), *sh["launches_solves"][0].items()):
+        total[k] += v
+    print(f"phase 29: {time.perf_counter() - t29:.1f} s")
+
+    # --- 30. the flagship transfer solve: rhs_split="mass", then CUDDH_DEBUG=1 -------
+    t30 = time.perf_counter()
+    fem = H1Space(Mesh2D.uniform_rect(cfg.nx, -1.0, 1.0, cfg.nx, -1.0, 1.0), Basis(cfg.deg + 1))
+    a_nodal = apply_diag_inv_mass(make_diag_inv_mass_op(fem),
+                                  linear_functional(fem, wave_speed_coeff)).numpy()
+    b = helmholtz_rhs(fem, lambda xy: point_sources(xy, cfg.omega)).to(dev)
+    wc.reset_launches()
+    mddh = DDH(cfg.omega, a_nodal, fem, nx=cfg.nx, ny=cfg.nx, rhs_split="mass", device=dev)
+    mddh.prepare(cache_dir="")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, U = mddh.solver(cfg.gmres.m, cfg.gmres.maxit, cfg.gmres.tol)(b)
+    torch.cuda.synchronize()
+    mass_s = time.perf_counter() - t0
+    launches = dict(wc.wave_cycle.launches)
+    resid = _plain_residual(wc, mddh, b, out.x)
+    print(f"flagship transfer solve, rhs_split='mass': success={out.success} "
+          f"{out.num_iter} / {out.num_matvec} (the full split: {counts5}), solve {mass_s:.3f} s, "
+          f"plain-cycle residual {resid:.3e}, launches {launches}")
+    if not out.success or not resid <= 1.2e-4 or not bool(torch.isfinite(U).all()):
+        _fail(f"rhs_split='mass': success={out.success}, plain-cycle residual {resid:.3e}")
+    if launches != {**dict.fromkeys(launches, 0), "sparse_shared": 2}:
+        _fail(f"rhs_split='mass': launches {launches}; want the two sparse layout-(a) probes")
+    for k in total:
+        total[k] += launches[k]
+    del mddh
+    os.environ["CUDDH_DEBUG"] = "1"
+    try:
+        res, launches = _transfer_run(
+            wc, lambda: run_ddh(nx=cfg.nx, deg=cfg.deg, m=cfg.gmres.m, maxit=cfg.gmres.maxit,
+                                tol=cfg.gmres.tol, wh_maxit=cfg.wh_maxit,
+                                block_size=cfg.block_size, transfer=True, device=dev),
+            "flagship transfer solve, CUDDH_DEBUG=1", max_restarts=20, jax_matvecs=366,
+            matvec_slack=cfg.gmres.m + 1, gm=cfg.gmres)
+    finally:
+        del os.environ["CUDDH_DEBUG"]
+    if (res.num_iter, res.num_matvec) != counts5:
+        _fail(f"CUDDH_DEBUG=1: {res.num_iter} / {res.num_matvec}; want phase 5's {counts5}")
+    _only_sparse(launches, "shared", "CUDDH_DEBUG=1 flagship")
+    for k in total:
+        total[k] += launches[k]
+    del res
+    print(f"phase 30: {time.perf_counter() - t30:.1f} s")
+
+    # --- 31. shard_sources=True on the card, against phase 18's replicated solve ---
+    t31 = time.perf_counter()
+    rdv = tempfile.mkdtemp(prefix="cuddh_rdv_")
+    initialize_from_env(f"file://{rdv}/store", 1, 0, device="cuda")
+    try:
+        wc.reset_launches()
+        g = mcfg.gmres
+        res = run_ddh_multi_source(nx=mcfg.nx, deg=mcfg.deg, m=g.m, maxit=g.maxit, tol=g.tol,
+                                   n_sources=mcfg.n_sources, transfer=mcfg.transfer,
+                                   shard_sources=True, device=dev)
+        launches = dict(wc.wave_cycle.launches)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(rdv, ignore_errors=True)
+    d = np.linalg.norm(res.solution - ms18["solution"]) / np.linalg.norm(ms18["solution"])
+    same = np.array_equal(res.solution, ms18["solution"])
+    print(f"shard_sources=True (nccl, world 1, {res.extra['n_shard']} shard): "
+          f"{res.num_iter} restarts, per-source matvecs {res.extra['per_source_matvecs']}; "
+          f"solution rel {d:.3e} to phase 18's (bitwise {same}), launches {launches}")
+    if (res.extra["n_shard"], res.num_iter, res.extra["per_source_matvecs"]) != (
+            1, ms18["restarts"], ms18["per"]) or not d <= 1e-5:
+        _fail(f"shard_sources: {res.extra['n_shard']} shards, {res.num_iter} restarts, "
+              f"{res.extra['per_source_matvecs']}, rel {d:.3e}; want phase 18's "
+              f"{ms18['restarts']}, {ms18['per']} within 1e-5")
+    _only_sparse(launches, "shared", "shard_sources probes")
+    for k in total:
+        total[k] += launches[k]
+    del res
+    print(f"phase 31: {time.perf_counter() - t31:.1f} s")
+
+    # --- 32. the bench's scaling key (phase 20), and the scaling CLI at nx 128 ------
+    t32 = time.perf_counter()
+    sc = bench20["extras"]["scaling"]
+    print(f"bench scaling key: {json.dumps(sc)}")
+    sizes = [2 ** i for i in range(world.bit_length()) if 2 ** i <= world]
+    if "error" in sc or sc["backend"] != "nccl" or sc["devices"] != sizes or not all(
+            r["finite"] and r["transfer"] for r in sc["records"]):
+        _fail(f"bench scaling key: {sc}; want nccl records at world sizes {sizes}")
+    for args in (["--transfer", str(cfg.nx)], [str(cfg.nx)]):
+        lines, _ = _module_run("cuddhelmholtz_tpu_torch.examples.scaling", args,
+                               f"scaling {' '.join(args)}")
+        recs = json.loads(lines[-1])
+        for r in recs:
+            print(f"scaling {' '.join(args)}: {json.dumps(r)}")
+        r0 = recs[0]
+        if ([r["devices"] for r in recs] != sizes or r0["backend"] != "nccl"
+                or r0["nx"] != cfg.nx or r0["n_domains"] != 1024 or not r0["finite"]):
+            _fail(f"scaling {args}: {recs}")
+        if "--transfer" not in args and r0["launches"] != {"sparse_shared": 4}:
+            _fail(f"scaling {args}: rank 0 launched {r0['launches']}; want 4 sparse (a) "
+                  "(a warm-up and 3 timed sharded matvecs)")
+        for k, v in r0["launches"].items():
+            total[k] += v
+    print(f"phase 32: {time.perf_counter() - t32:.1f} s")
+    return cmp4
+
+
 def main() -> int:
     import torch
 
@@ -1427,6 +1786,7 @@ def main() -> int:
     print(f"ddh_multi_source_8 plain-cycle check per source: {[f'{r:.3e}' for r in resids]}")
     if not max(resids) <= 1.2 * gm18.tol:
         _fail(f"ddh_multi_source_8: plain-cycle residuals {resids} (> {1.2 * gm18.tol:.2e})")
+    ms18 = {"solution": Us, "restarts": res18.num_iter, "per": per}
     del res18, mddh, bs, lam18, solo, head
     torch.cuda.empty_cache()
     print(f"phase 18: {time.perf_counter() - t18:.1f} s")
@@ -1496,8 +1856,8 @@ def main() -> int:
     if (cli["config"], cli["success"], cli["iters"], cli["matvecs"]) != (
             "poisson_structured", True, 14, 292):
         _fail(f"drivers CLI: {cli}; want poisson_structured successful at 14 / 292")
-    rec = _subprocess_json([sys.executable, "-m", "cuddhelmholtz_tpu_torch.bench"], "bench",
-                           BENCH_SKIP_CONFIGS="1")
+    rec = bench20 = _subprocess_json([sys.executable, "-m", "cuddhelmholtz_tpu_torch.bench"],
+                                     "bench", BENCH_SKIP_CONFIGS="1")
     ex = rec["extras"]
     print(f"bench (no config rows): headline {ex['gmres_restarts']} / {ex['gmres_matvecs']} in "
           f"{rec['solve_seconds']:.4f} s, value {rec['value']:.4e} nnz/s; executed wave-cycle "
@@ -1663,6 +2023,8 @@ def main() -> int:
 
     _phases_25_to_27(wc, dev, res14, counts5, total)
     print(f"phases 1-27: {time.perf_counter() - t_main:.1f} s")
+    cmp4 = _phases_28_to_32(wc, dev, rng, counts5, ms18, bench20, lomega, total, shapes)
+    print(f"phases 1-32: {time.perf_counter() - t_main:.1f} s")
     print(f"kernel launches over the main-path runs: {total}")
     for row in (r for rows in shapes.values() for r in rows):
         dense = (f" against {row['dense']} {row['dense_ms']:.3f} ms "
@@ -1687,7 +2049,8 @@ def main() -> int:
               res_a["sparse"][1], plain_ms, bound_a, by_a, nnz=nnz_a, stride=form_a.stride, form_ms=form_ms_a,
               shapes=shapes["sparse_shared"]),
         entry("wave_cycle sparse (b) grouped S", "wave_cycle_sparse.cu", 201, "sparse_grouped",
-              max(res_b["sparse"][0], res_c["sparse"][0], res_sb["sparse"][0]),
+              max(res_b["sparse"][0], res_c["sparse"][0], res_sb["sparse"][0], cmp4["b"][0],
+                  cmp4["c"][0]),
               res_sb["sparse"][1], plain_ms_sb, bound_sb, by_sb, nnz=_nnz(form_sb),
               stride=form_sb.stride, form_ms=form_ms_sb, shapes=shapes["sparse_grouped"]),
         entry("wave_cycle (a) shared S", "wave_cycle.cu", 69, "shared", res_a["resident"][0],

@@ -20,10 +20,15 @@ bench's keys:
   * ``extras.baseline_configs``: one row per config of
     ``config.BASELINE_CONFIGS`` through ``run_config``, in this process
     (``helmholtz_unpreconditioned`` at maxit 10);
+  * ``extras.scaling``: the weak-scaling protocol of
+    ``examples/scaling.py::capture_scaling`` (the sharded transfer-path
+    matvec at every world size the visible cards give, NCCL; gloo ranks on
+    the CPU), each record with its backend and world size;
   * ``extras.device``: ``nvidia-smi``'s name and power limit of the card.
 
-``BENCH_SKIP_CONFIGS`` skips the config rows, ``BENCH_NO_TRANSFER`` runs the
-headline on the direct path.  A row that raises records its error, and the
+``BENCH_SKIP_CONFIGS`` skips the config rows, ``BENCH_SKIP_SCALING`` the
+scaling records, ``BENCH_NO_TRANSFER`` runs the headline on the direct
+path.  A row (or the scaling run) that raises records its error, and the
 bench exits non-zero after printing.
 """
 
@@ -160,7 +165,7 @@ def _config_rows(device, secs: float) -> dict:
 
 
 def run_bench(device="cuda", nx: int = 128, skip_configs: bool = False,
-              no_transfer: bool = False) -> dict:
+              no_transfer: bool = False, skip_scaling: bool = False) -> dict:
     """Run the bench and return its record (the JSON line's object).
     ``nx`` sizes the headline (the config rows keep their own sizes)."""
     device = check_device(device)
@@ -241,6 +246,16 @@ def run_bench(device="cuda", nx: int = 128, skip_configs: bool = False,
         f"{cyc_flops / cyc_secs / 1e12:.2f} TFLOP/s dense-equivalent")
 
     rows = {} if skip_configs else _config_rows(device, secs)
+    scaling = None
+    if not skip_scaling:
+        from .examples.scaling import capture_scaling
+
+        try:
+            scaling = capture_scaling(device=device.type)
+            log(f"scaling: {scaling['backend']} world sizes {scaling['devices']}")
+        except Exception as e:  # recorded; main() exits non-zero
+            scaling = {"error": repr(e)[:500]}
+            log(f"scaling FAILED: {e!r}")
     return {
         "metric": "ddh_operator_throughput",
         "value": nnz_s,
@@ -259,6 +274,7 @@ def run_bench(device="cuda", nx: int = 128, skip_configs: bool = False,
             "stiffness_apply_us": dt_apply * 1e6,
             "precompute": pstats,
             "baseline_configs": rows,
+            "scaling": scaling,
             "device": {"name_power_limit": name_power, "torch": torch.__version__,
                        "cuda": torch.version.cuda},
         },
@@ -267,9 +283,12 @@ def run_bench(device="cuda", nx: int = 128, skip_configs: bool = False,
 
 def main() -> int:
     rec = run_bench(skip_configs=bool(os.environ.get("BENCH_SKIP_CONFIGS")),
-                    no_transfer=bool(os.environ.get("BENCH_NO_TRANSFER")))
+                    no_transfer=bool(os.environ.get("BENCH_NO_TRANSFER")),
+                    skip_scaling=bool(os.environ.get("BENCH_SKIP_SCALING")))
     print(json.dumps(rec))
     failed = [k for k, row in rec["extras"]["baseline_configs"].items() if "error" in row]
+    if "error" in (rec["extras"].get("scaling") or {}):
+        failed.append("scaling")
     if failed:
         log(f"bench: rows failed: {failed}")
         return 1

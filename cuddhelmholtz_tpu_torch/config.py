@@ -3,8 +3,8 @@
 Counterpart of ``cuddhelmholtz_tpu/config.py`` (copied: importing the JAX
 module would import jax).  ``BASELINE_CONFIGS`` holds the JAX package's nine
 entries in its order and with its values; each also has a module constant
-(``DDH_STRUCTURED``, ...).  The JAX package's ``rhs_split`` field comes
-with the code that reads it.
+(``DDH_STRUCTURED``, ...).  The JAX package's ``rhs_split`` field is left
+out: no JAX driver reads it (the option is ``DDH(rhs_split=)``).
 """
 
 from __future__ import annotations

@@ -419,16 +419,21 @@ def run_ddh_multi_source(
     ndom subdomain rows: one batched transfer product on the transfer path,
     one wave-cycle launch on the direct path (``transfer=False``).
 
+    ``shard_sources=True`` splits the source axis over the ranks of the
+    ``torch.distributed`` default group (one rank per device; one rank when
+    it is not initialised): the largest divisor of K that fits the world
+    size is the number of shards, rank r < n_shard solves sources [r K /
+    n_shard, (r + 1) K / n_shard) on its own device, and every rank gathers
+    all the results.  Each source's own space (``method="vmap"``) gives
+    every source the solution and counts of the replicated solve; a block
+    space spans its shard's sources.
+
     The top-level ``res_norm``, ``num_iter`` and ``num_matvec`` describe
     source 0; ``success`` holds when every source converged.  ``extra`` has
-    the per-source counts and histories, ``lam`` (K, 2 n_lambda) and, with
-    ``measure_warm``, the time of a second solve (``warm_seconds``).
-    ``shard_sources`` (the source axis over several devices) is not ported.
+    the per-source counts and histories, ``lam`` (K, 2 n_lambda), ``n_shard``
+    and, with ``measure_warm``, the time of a second solve
+    (``warm_seconds``).
     """
-    if shard_sources:
-        raise NotImplementedError(
-            "shard_sources: multi-device solves are not ported yet (ROADMAP queue 1)"
-        )
     if method not in ("block", "vmap"):
         raise ValueError("method must be 'block' or 'vmap'")
     device = check_device(device)
@@ -438,6 +443,12 @@ def run_ddh_multi_source(
     b_a = linear_functional(fem, wave_speed_coeff)
     a_nodal = apply_diag_inv_mass(make_diag_inv_mass_op(fem), b_a).numpy()
     bs = ring_sources(fem, omega, n_sources, source_radius).to(device)
+    n_shard, rank = 1, 0
+    if shard_sources:
+        n_shard, rank = _source_shards(n_sources)
+        per = n_sources // n_shard
+        # ranks past the last shard solve nothing and only gather
+        bs = bs[rank * per:(rank + 1) * per]
 
     t_setup = time.perf_counter()
     ddh = DDH(omega, a_nodal, fem, nx=nx, ny=nx, device=device)
@@ -451,21 +462,40 @@ def run_ddh_multi_source(
         gmres_opts = {"reorth": False}
     solve = ddh.solver(m, maxit, tol, gmres_opts=gmres_opts, block=method == "block",
                        vmapped=method == "vmap")
-    outs, Us, dt = _timed_solve(solve, bs, device)
-    warm = {}
-    if measure_warm:
-        warm["warm_seconds"] = _timed_solve(solve, bs, device)[2]
-    Us = Us.cpu().numpy()
-    if method == "block":
-        # one shared space: one restart count, K matvecs per block operator call
-        hists = [outs.res_norm[: outs.n_hist, k].cpu().numpy() for k in range(n_sources)]
-        per_restarts = [outs.num_iter] * n_sources
-        per_matvecs = [outs.num_matvec // n_sources] * n_sources
-    else:
-        n_hist = outs.n_hist.tolist()
-        hists = [outs.res_norm[k, : n_hist[k]].cpu().numpy() for k in range(n_sources)]
-        per_restarts = outs.num_iter.tolist()
-        per_matvecs = outs.num_matvec.tolist()
+    mine = {"lam": torch.zeros(0, ddh.size, device=device), "hists": [], "restarts": [],
+            "matvecs": [], "success": True}
+    Us = torch.zeros(0, 2 * fem.ndof, device=device)
+    dt, warm = 0.0, {}
+    if bs.shape[0]:
+        outs, Us, dt = _timed_solve(solve, bs, device)
+        if measure_warm:
+            warm["warm_seconds"] = _timed_solve(solve, bs, device)[2]
+        k_here = bs.shape[0]
+        if method == "block":
+            # one shared space: one restart count, K matvecs per block operator call
+            hists = [outs.res_norm[: outs.n_hist, k].cpu().numpy() for k in range(k_here)]
+            restarts = [outs.num_iter] * k_here
+            matvecs = [outs.num_matvec // k_here] * k_here
+        else:
+            n_hist = outs.n_hist.tolist()
+            hists = [outs.res_norm[k, : n_hist[k]].cpu().numpy() for k in range(k_here)]
+            restarts = outs.num_iter.tolist()
+            matvecs = outs.num_matvec.tolist()
+        mine = {"lam": outs.x, "hists": hists, "restarts": restarts, "matvecs": matvecs,
+                "success": bool(outs.success.all())}
+    mine["solution"] = Us.cpu().numpy()
+    mine["lam"] = mine["lam"].cpu().numpy()
+    parts = [mine]
+    if shard_sources and torch.distributed.is_initialized():
+        parts = [None] * torch.distributed.get_world_size()
+        torch.distributed.all_gather_object(parts, mine)
+        parts = parts[:n_shard]
+    Us = np.concatenate([q["solution"] for q in parts])
+    hists = [h for q in parts for h in q["hists"]]
+    per_restarts = [r for q in parts for r in q["restarts"]]
+    per_matvecs = [v for q in parts for v in q["matvecs"]]
+    lam = torch.as_tensor(np.concatenate([q["lam"] for q in parts]), device=device)
+    success = all(q["success"] for q in parts)
     if out_dir:
         to_file(f"{out_dir}/xy.0000", fem.coords.T)
         for k in range(n_sources):
@@ -478,11 +508,12 @@ def run_ddh_multi_source(
         num_iter=per_restarts[0],
         num_matvec=per_matvecs[0],
         seconds=dt,
-        success=bool(outs.success.all()),
+        success=success,
         extra={
             "omega": omega,
             "ndof": fem.ndof,
             "n_sources": n_sources,
+            "n_shard": n_shard,
             "method": method,
             "per_source_matvecs": per_matvecs,
             "per_source_restarts": per_restarts,
@@ -493,11 +524,23 @@ def run_ddh_multi_source(
             "setup_seconds": setup_s,
             "precompute": pstats,
             "ddh": ddh,
-            "lam": outs.x,
+            "lam": lam,
             "rhs": bs,
             **warm,
         },
     )
+
+
+def _source_shards(n_sources: int) -> tuple[int, int]:
+    """(number of source shards, this rank): the largest divisor of
+    ``n_sources`` that fits the world size of the ``torch.distributed``
+    default group (1 and rank 0 when it is not initialised)."""
+    dist = torch.distributed
+    if not (dist.is_available() and dist.is_initialized()):
+        return 1, 0
+    world = dist.get_world_size()
+    n_shard = max(d for d in range(1, min(n_sources, world) + 1) if n_sources % d == 0)
+    return n_shard, dist.get_rank()
 
 
 # inner lambda-GMRES options of the preconditioner: single-pass CGS (the

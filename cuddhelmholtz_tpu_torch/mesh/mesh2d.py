@@ -9,8 +9,9 @@ conventions are the JAX package's, so every index table agrees bitwise:
   * an edge's ``delta`` is +1 if the second element traverses it in the same
     direction as the first, else -1.
 
-The edge build is the JAX package's NumPy path; its optional native C++
-variant produces the same tables and is not ported.
+The edge build runs the native C++ build (``native.build_edges``) unless
+``CUDDH_NATIVE=0``, else the JAX package's NumPy path; both give the same
+tables.
 """
 
 from __future__ import annotations
@@ -125,6 +126,15 @@ class Mesh2D:
                 f"by {int(counts.max())} element sides"
             )
 
+        from .. import native
+
+        built = native.build_edges(ev, nv)
+        if built is not None:
+            (self.edge_vertices, self.edge_elements, self.edge_sides,
+             self.edge_delta) = built
+            self._finish_edges()
+            return
+
         # renumber edges by order of first occurrence (np.unique sorts by key)
         order = np.argsort(first_idx, kind="stable")
         rank_of_uniq = np.empty_like(order)
@@ -159,7 +169,10 @@ class Mesh2D:
         self.edge_elements = edge_elements
         self.edge_sides = edge_sides
         self.edge_delta = edge_delta
-        self.edge_type = np.where(edge_elements[:, 1] >= 0, INTERIOR, BOUNDARY).astype(
+        self._finish_edges()
+
+    def _finish_edges(self):
+        self.edge_type = np.where(self.edge_elements[:, 1] >= 0, INTERIOR, BOUNDARY).astype(
             np.int32
         )
         self.boundary_edges = np.nonzero(self.edge_type == BOUNDARY)[0].astype(np.int32)

@@ -9,7 +9,8 @@ solves the substructured system ``(I - S) lambda = b`` on the interfaces.
 The setup is the JAX package's, in NumPy float64: WaveHoltz tables, the
 lambda B-tables with the reference's last-write-wins order, the own-slot
 lambda layout and the dense assembled subdomain stiffness.  Device state is
-float32.  Two paths:
+float32 (``DDH(dtype=)``: float64 runs the plain cycle on the CPU; the
+kernels take float32 only).  Two paths:
 
   * direct: every ``action``, ``rhs`` and ``postprocess`` runs one wave cycle
     (``ops/cuda/wave_cycle.py``; one kernel launch on a GPU);
@@ -59,6 +60,7 @@ from ..ops.cuda.wave_cycle import (
 from ..ops.mass import assembly_table, lumped_mass_diagonal
 from ..spaces.ensemble import EnsembleSpace, structured_labels
 from ..spaces.h1 import H1Space
+from ..utils.debug import check_finite, check_index_table
 from .gmres import (
     BlockGmresResult,
     GmresResult,
@@ -90,7 +92,8 @@ class DDHParams(NamedTuple):
 
     Subdomain rows are (ndom, pad); the trace exchange runs on compact
     (ndom, pf) face-slot arrays.  Index tables are int64 with -1 padding.
-    ``K0``, ``dt`` and ``omega`` are the float32 values as Python floats.
+    ``K0``, ``dt`` and ``omega`` are the values in the compute dtype as Python
+    floats.
     """
 
     S: torch.Tensor  # (pad, pad) shared or (ndom, pad, pad) per-domain stiffness
@@ -220,13 +223,14 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _to_device(arrays: dict, device) -> dict:
+def _to_device(arrays: dict, device, dtype=torch.float32) -> dict:
     """The device tensors of ``DDHParams``: the JAX package's fields from
-    ``arrays`` and the solution assembly table built from its ``gI``."""
+    ``arrays`` (floats in ``dtype``) and the solution assembly table built
+    from its ``gI``."""
     out = {}
     for name in _TENSOR_FIELDS:
-        dtype = torch.int64 if name in _INDEX_FIELDS else torch.float32
-        out[name] = torch.tensor(np.asarray(arrays[name]), dtype=dtype, device=device)
+        t = torch.int64 if name in _INDEX_FIELDS else dtype
+        out[name] = torch.tensor(np.asarray(arrays[name]), dtype=t, device=device)
     gI = np.asarray(arrays["gI"])
     out["sol_table"] = torch.as_tensor(assembly_table(gI, int(gI.max()) + 1), device=device)
     return out
@@ -299,6 +303,8 @@ class DDH(nn.Module):
     For structured meshes pass ``nx``, ``ny`` (square subdomains of
     ``block_size`` DOFs per side); otherwise pass ``element_labels``.  The
     device tensors are buffers on ``device``; ``forward(lam)`` is the action.
+    ``rhs_split`` is the forcing split across subdomains: ``"full"`` (the
+    reference's) or ``"mass"`` (by the partition-of-unity mass weight).
     """
 
     def __init__(
@@ -313,11 +319,16 @@ class DDH(nn.Module):
         block_size: int = 16,
         nt_override: int | None = None,
         wh_maxit: int = WH_MAXIT,
+        rhs_split: str = "full",
         *,
         device="cuda",
+        dtype=torch.float32,
     ):
         super().__init__()
         device = check_device(device)
+        if rhs_split not in ("full", "mass"):
+            raise ValueError("rhs_split must be 'full' or 'mass'")
+        self.rhs_split = rhs_split
         nb = space.n_basis
         mesh = space.mesh
 
@@ -507,21 +518,35 @@ class DDH(nn.Module):
         self.transfer_stats: dict = {}
         self.io_stats: dict = {}
 
-        # the full global rhs row feeds every subdomain that touches it (the
-        # reference's forcing; the JAX package's rhs_split="mass" is not ported)
+        # forcing split across subdomains: "full" feeds the full global rhs
+        # row to every subdomain that touches it (the reference's forcing,
+        # which double-counts interface loads); "mass" splits it by the
+        # partition-of-unity weight m_p / m, so interface rows sum exactly
+        F_weight = m_sub * gmi_sub if rhs_split == "mass" else valid
+
+        # CUDDH_DEBUG audit of the apply path's index tables: the apply masks
+        # their -1 padding, so a corrupted entry would otherwise go unnoticed
+        check_index_table("DDH.gI", gI, self.g_ndof)
+        check_index_table("DDH.fslot", fslot, pad)
+        check_index_table("DDH.B0", B[:, :, 0], self.n_lambda)
+        check_index_table("DDH.B1", B[:, :, 1], self.n_lambda)
+
         host = {
-            "S": S_dev, "gI": gI, "gmask": valid, "F_weight": valid,
+            "S": S_dev, "gI": gI, "gmask": valid, "F_weight": F_weight,
             "Ha": H_sub * a_sub, "inv_mi": inv_mi, "m_gmi": m_sub * gmi_sub,
             "fslot": fslot, "Hf": Hf, "a2wf": a2wf, "B0": B[:, :, 0], "B1": B[:, :, 1],
             "tables": tables,
         }
-        for name, t in _to_device(host, device).items():
+        for name, t in _to_device(host, device, dtype).items():
             self.register_buffer(name, t)
         self._S_sparse: SparseS | None = None
         self.sparse_seconds: float | None = None  # build time of S_sparse
-        self.K0 = _f32(filt[0])
-        self.dt32 = _f32(dt)
-        self.omega32 = _f32(omega)
+        # K0, dt and omega rounded to the compute dtype, as the JAX package's
+        # dtype scalars
+        self._np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+        self.K0 = float(self._np_dtype.type(filt[0]))
+        self.dt32 = float(self._np_dtype.type(dt))
+        self.omega32 = float(self._np_dtype.type(omega))
 
     @property
     def params(self) -> DDHParams:
@@ -562,6 +587,7 @@ class DDH(nn.Module):
 
     def action(self, lam: torch.Tensor) -> torch.Tensor:
         """y = lambda - S(lambda): the GMRES operator."""
+        check_finite("DDH.action input", lam)
         if self.use_transfer and self.route is not None:
             return ddh_action_transfer_rolled(self.params, self.route, lam, self.n_own)
         if self.use_transfer:
@@ -590,6 +616,7 @@ class DDH(nn.Module):
 
     def rhs(self, f: torch.Tensor) -> torch.Tensor:
         """Substructured rhs from the Helmholtz forcing."""
+        check_finite("DDH.rhs input", f)
         if self.use_transfer and self.io is not None:
             pio, pshape = self.patch_io()
             if pio is not None:
@@ -601,6 +628,7 @@ class DDH(nn.Module):
 
     def postprocess(self, lam: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
         """Recover the [u; v] solution."""
+        check_finite("DDH.postprocess lambda", lam)
         if self.use_transfer and self.io is not None:
             pio, pshape = self.patch_io()
             if pio is not None:
@@ -680,7 +708,7 @@ class DDH(nn.Module):
             if grouped:
                 c8 = -(-c // ROWS_PER_BLOCK) * ROWS_PER_BLOCK
                 rows += nu * c8
-                fg = np.zeros((2, nu, c8, pad), np.float32)
+                fg = np.zeros((2, nu, c8, pad), cols.dtype)
                 fg[:, :, :c] = cols[k0:k0 + c].transpose(1, 2, 0, 3)
                 fg = torch.as_tensor(fg, device=dev).reshape(2, nu * c8, pad)
                 pc = p._replace(
@@ -719,7 +747,7 @@ class DDH(nn.Module):
         uidx, _, nu = self._domain_groups()
         pf = self._fslot_np.shape[1]
         fslot_u, Hf_u = self._fslot_np[uidx], self._Hf_np[uidx]
-        cols = np.zeros((ncols, 2, nu, self.pad), np.float32)
+        cols = np.zeros((ncols, 2, nu, self.pad), self._np_dtype)
         kk, dd = np.meshgrid(np.arange(pf), np.arange(nu), indexing="ij")
         sl = np.maximum(fslot_u, 0)
         cols[base + kk, 0, dd, sl[dd, kk]] = Hf_u[dd, kk]
@@ -757,7 +785,7 @@ class DDH(nn.Module):
         """Use the deduped transfer stack ``T_u`` (nu, 2pf, 2pf) with the
         group of each domain; builds the rolled exchange route when the dual
         graph admits one, else the action scatters."""
-        self._T_u = np.ascontiguousarray(T_u, dtype=np.float32)
+        self._T_u = np.ascontiguousarray(T_u, dtype=self._np_dtype)
         self._T_groups = np.asarray(groups)
         self._T_dev = None
         self.use_transfer = True
@@ -798,10 +826,12 @@ class DDH(nn.Module):
         dev = self.gmask.device
         nu = int(np.max(groups)) + 1
 
+        dtype = self.gmask.dtype
+
         def t(a):
             if not isinstance(a, torch.Tensor):
-                a = np.array(a, dtype=np.float32)
-            return torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()
+                a = np.array(a, dtype=self._np_dtype)
+            return torch.as_tensor(a, dtype=dtype, device=dev).contiguous()
 
         maj, spec = _iomaps_split(groups, dev)
         self.io = IOMaps(
@@ -843,7 +873,8 @@ class DDH(nn.Module):
         cycle = "plain" if dev.type == "cpu" else default_variant(self.pad, self.S_sparse, dev)
         h.update(repr((
             CACHE_FORMAT_VERSION, "torch", dev.type, cycle, self.wh_maxit, self.pad,
-            self.n_own, self.n_lost, self.nt, float(self.omega), float(self.dt), "float32",
+            self.n_own, self.n_lost, self.nt, float(self.omega), float(self.dt),
+            str(self._np_dtype),
         )).encode())
         return h.hexdigest()[:24]
 
@@ -1069,7 +1100,7 @@ class DDHPreconditioner:
 
     def __call__(self, v: torch.Tensor) -> torch.Tensor:
         self.calls += 1
-        v32 = v.to(torch.float32)
+        v32 = v.to(self.ddh.gmask.dtype)
         out = gmres(self.ddh.action, self.ddh.rhs(v32), m=self.inner_m,
                     maxit=self.inner_maxit, tol=0.0, **self.gmres_opts)
         return self.ddh.postprocess(out.x, v32).to(v.dtype)

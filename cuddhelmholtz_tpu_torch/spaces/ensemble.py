@@ -21,6 +21,7 @@ import warnings
 
 import numpy as np
 
+from ..utils.debug import check_index_table, debug_enabled
 from .h1 import H1Space, first_occurrence_unique, side_to_volume
 
 
@@ -50,6 +51,14 @@ class EnsembleSpace:
         self.space = space
         self.n_domains = n_domains
         self.n_basis = nb
+
+        # CUDDH_DEBUG: audit the input numbering before building.  The
+        # batched first-occurrence keys are dom * ndof + gid, so an
+        # out-of-range gid would alias into the next domain's key space
+        # instead of giving a detectably bad table.
+        check_index_table(
+            "EnsembleSpace input space.dofs", space.dofs, space.ndof, allow_pad=False
+        )
 
         # --- elements per subdomain (ascending global order) ----------------
         counts = np.bincount(labels, minlength=n_domains)
@@ -172,6 +181,24 @@ class EnsembleSpace:
         else:
             self.cmap = np.zeros((0, 4), dtype=np.int32)
         self.n_shared_dofs = len(self.cmap)
+        self._debug_audit()
+
+    def _debug_audit(self):
+        """CUDDH_DEBUG index-table audit of the built tables."""
+        if not debug_enabled():
+            return
+        space, mesh = self.space, self.space.mesh
+        check_index_table("EnsembleSpace.elems", self.elems, mesh.n_elem)
+        check_index_table("EnsembleSpace.faces", self.faces, mesh.n_edges)
+        check_index_table("EnsembleSpace.gI", self.gI, space.ndof)
+        check_index_table("EnsembleSpace.local_dofs", self.local_dofs, self.mx_ndof)
+        check_index_table("EnsembleSpace.fI", self.fI, self.mx_fdof)
+        check_index_table("EnsembleSpace.pI", self.pI, self.mx_ndof)
+        if self.n_shared_dofs:
+            check_index_table("EnsembleSpace.cmap[:, :2]", self.cmap[:, :2], self.n_domains,
+                              allow_pad=False)
+            check_index_table("EnsembleSpace.cmap[:, 2:]", self.cmap[:, 2:], self.mx_fdof,
+                              allow_pad=False)
 
     def __repr__(self) -> str:
         return (

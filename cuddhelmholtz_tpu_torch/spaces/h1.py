@@ -2,7 +2,9 @@
 
 Counterpart of ``H1Space`` in ``cuddhelmholtz_tpu/spaces/h1.py``: the same
 first-occurrence numbering over the flat (i fastest, then j, then element)
-traversal, so ``dofs`` agrees bitwise with the JAX package.  ``FaceSpace`` is
+traversal, so ``dofs`` agrees bitwise with the JAX package.  The numbering
+runs the native C++ build (``native.h1_numbering``) unless
+``CUDDH_NATIVE=0``, else NumPy.  ``FaceSpace`` is
 the trace space on a face list (the absorbing or Dirichlet boundary).
 """
 
@@ -13,6 +15,7 @@ import torch
 
 from ..mesh.mesh2d import Mesh2D
 from ..utils.basis import Basis
+from ..utils.debug import check_index_table
 
 
 def first_occurrence_unique(arr: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -55,6 +58,17 @@ class H1Space:
         nb = basis.n
         nel = mesh.n_elem
         N = nel * nb * nb
+
+        from .. import native
+
+        built = native.h1_numbering(
+            mesh.elem_vertices, mesh.n_vertices, mesh.edge_vertices, mesh.edge_elements,
+            mesh.edge_sides, mesh.edge_delta, nb,
+        )
+        if built is not None:
+            self.dofs, self.ndof = built
+            self._set_coords()
+            return
 
         # primary[v] = flat volume index of the DOF v is identified with
         primary = np.arange(N, dtype=np.int64)
@@ -102,6 +116,7 @@ class H1Space:
         self._set_coords()
 
     def _set_coords(self):
+        check_index_table("H1Space.dofs", self.dofs, self.ndof, allow_pad=False)
         X = self.mesh.physical_coordinates(self.basis.nodes, self.basis.nodes)
         coords = np.zeros((self.ndof, 2), dtype=np.float64)
         coords[self.dofs.transpose(0, 2, 1).reshape(-1)] = X.reshape(-1, 2)
@@ -141,6 +156,9 @@ class FaceSpace:
         self.proj = proj.astype(np.int32)
         self.face_dofs = inv.reshape(len(faces), nb).astype(np.int32)
         self.fdof = len(proj)
+
+        check_index_table("FaceSpace.proj", self.proj, space.ndof, allow_pad=False)
+        check_index_table("FaceSpace.face_dofs", self.face_dofs, self.fdof, allow_pad=False)
 
     @property
     def size(self) -> int:

@@ -40,8 +40,9 @@ def _no_setup_cache():
         yield
 
 
-# fields the port does not carry yet: their code is not ported
-WAITING = {"rhs_split": "full"}
+# fields the port leaves out: no driver of either package reads them (the
+# split is DDH(rhs_split=), held to JAX in test_torch_aux.py)
+LEFT_OUT = {"rhs_split": "full"}
 
 
 def test_baseline_configs_match_jax():
@@ -50,8 +51,8 @@ def test_baseline_configs_match_jax():
     assert len(got) == 9
     for g, w in zip(got, want):
         gd, wd = dataclasses.asdict(g), dataclasses.asdict(w)
-        assert set(wd) - set(gd) == set(WAITING)
-        assert {k: wd[k] for k in WAITING} == WAITING
+        assert set(wd) - set(gd) == set(LEFT_OUT)
+        assert {k: wd[k] for k in LEFT_OUT} == LEFT_OUT
         assert gd == {k: wd[k] for k in gd}, g.name
     hf, ms = config.DDH_HIGH_FREQUENCY, config.DDH_MULTI_SOURCE_8
     assert (hf.nx, hf.omega) == (256, 2 * np.pi * 25.6)
@@ -95,7 +96,14 @@ def test_cli_record_matches_jax(capsys):
     assert main(["no_such_config"], device="cpu") == 1
 
 
-def test_bench_headline_matches_a_direct_solve():
+def test_bench_headline_matches_a_direct_solve(monkeypatch):
+    # the scaling key's records come from spawned ranks, checked in
+    # test_torch_multiprocess.py; here only that the bench asks for them
+    from cuddhelmholtz_tpu_torch.examples import scaling
+
+    asked = []
+    monkeypatch.setattr(scaling, "capture_scaling",
+                        lambda **kw: asked.append(kw) or {"backend": "gloo", "devices": [1]})
     nx = 16
     rec = bench.run_bench(device="cpu", nx=nx, skip_configs=True)
     assert set(rec) == {"metric", "value", "unit", "vs_baseline", "solve_seconds",
@@ -103,8 +111,9 @@ def test_bench_headline_matches_a_direct_solve():
     ex = rec["extras"]
     assert {"solve_seconds", "setup_seconds", "gmres_restarts", "gmres_matvecs",
             "wave_cycle_executed_nnz_s", "wave_cycle_ms_per_apply", "wave_cycle_dense_tflops",
-            "precompute", "baseline_configs", "device"} <= set(ex)
+            "precompute", "baseline_configs", "scaling", "device"} <= set(ex)
     assert ex["baseline_configs"] == {} and ex["device"]["name_power_limit"] is None
+    assert asked == [{"device": "cpu"}] and ex["scaling"]["backend"] == "gloo"
     assert rec["value"] > 0 and ex["wave_cycle_ms_per_apply"] > 0
 
     omega = 2 * np.pi * nx / 10

@@ -122,8 +122,12 @@ def test_out_dir_artifacts(tmp_path):
 
 
 def test_refusals():
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        run_ddh_multi_source(**SMALL, shard_sources=True, device="cpu")
+    # shard_sources without a process group: one shard, the replicated solve
+    one = run_ddh_multi_source(**SMALL, shard_sources=True, device="cpu")
+    ref = run_ddh_multi_source(**SMALL, device="cpu")
+    assert one.extra["n_shard"] == 1
+    assert np.array_equal(one.solution, ref.solution)
+    assert one.extra["per_source_matvecs"] == ref.extra["per_source_matvecs"]
     with pytest.raises(ValueError, match="method"):
         run_ddh_multi_source(**SMALL, method="loop", device="cpu")
     fem = H1Space(Mesh2D.uniform_rect(8, -1, 1, 8, -1, 1), Basis(4))

@@ -169,14 +169,15 @@ def test_params_from_jax_round_trip(pair):
 def test_run_ddh_unported_options_raise():
     """The transfer path, the multi-source kind and the coarse space are
     ported now (they run); a coarse correction without the transfer path
-    is a ``ValueError`` as in the JAX package, and the multi-device source
-    sharding still raises, naming the ROADMAP queue."""
+    is a ``ValueError`` as in the JAX package, and the source sharding runs
+    (one shard without a process group)."""
     res = run_ddh(nx=8, block_size=8, transfer=True, tol=1e-2, device="cpu")
     assert res.success and res.extra["ddh"].use_transfer
     with pytest.raises(ValueError, match="requires transfer=True"):
         run_ddh(nx=8, coarse="additive", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_ddh_multi_source(nx=8, shard_sources=True, device="cpu")
+    res = run_ddh_multi_source(nx=8, deg=1, n_sources=2, tol=1e-3, transfer=False,
+                               shard_sources=True, device="cpu")
+    assert res.success and res.extra["n_shard"] == 1
 
 
 def test_port_imports_no_jax():
@@ -185,7 +186,9 @@ def test_port_imports_no_jax():
             "solvers.coarse", "ops.cuda.wave_cycle", "ops.stiffness", "ops.kron",
             "ops.structured", "models.poisson", "solvers.gmres", "bench",
             "solvers.implicit", "models.inverse", "examples.sweep",
-            "examples.partition_study")
+            "examples.partition_study", "native", "parallel", "parallel.sharding",
+            "parallel.distributed", "utils.debug", "utils.checkpoint", "examples.scaling",
+            "examples.scaling_mp_worker", "examples.sharded_solve")
     code = ("import sys; " + "; ".join(f"import cuddhelmholtz_tpu_torch.{m}" for m in mods)
             + "; assert 'jax' not in sys.modules; assert 'cuddhelmholtz_tpu' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
