@@ -21,7 +21,12 @@ It imports nothing of JAX.  Phases, each raising on failure:
 4. The grouped-S layout (b), sparse against the plain cycle and the
    resident kernel, at the ``ddh_unstructured_square`` transfer-probe shape
    (S (8, 168, 168), 960 rows in runs of 120, nt 1,717), and the per-row
-   layout (c) (each row tiled x8 onto (b)) at that DDH's own shape.
+   layout (c) at that DDH's own shape: the sparse kernel's per-row instance
+   (each row once) against the plain cycle, the resident kernel (rows tiled
+   x8) and the sparse kernel on the rows tiled x8 onto (b), the route of the
+   JAX solver and of the port before the per-row instance (timed in turns;
+   the per-row outputs must equal the tiled ones bitwise: the same sums in
+   the same order).
 5. The flagship transfer solve ``run_ddh(nx=128, deg=3, transfer=True)``:
    prepare (transfer + io probes, layout (a)), then a solve that launches no
    kernel (checked by solving again on the prepared operator); <= 20
@@ -143,12 +148,13 @@ subprocesses too.
    ``H1Space`` timed with the native topology and with ``CUDDH_NATIVE=0``
    (the same tables); its io maps exceed the 1 GiB cap, so the solve runs
    rhs and postprocess as wave cycles: restarts within one of JAX's 18 and
-   <= 20, grouped sparse launches only, a repeated solve launches exactly 2
-   and repeats bitwise, plain-cycle residual <= 1.2e-4, peak memory; then
-   the kernel against the plain cycle in layout (c) (the rhs's 1,024 rows)
-   and layout (b) (64 probe runs).  Then the L3 ``--control`` case (a
-   jittered 87x87 grid, 256 domains, L3's omega) through ``_transfer_run``:
-   within one restart of JAX's 28 / 572.
+   <= 20, sparse launches only (grouped for the probes, 2 per-row for rhs
+   and postprocess), a repeated solve launches exactly 2 per-row and
+   repeats bitwise, plain-cycle residual <= 1.2e-4, peak memory; then the
+   kernel against the plain cycle in layout (c) (the rhs's 1,024 rows, per
+   row and tiled x8 as in phase 4) and layout (b) (64 probe runs).  Then
+   the L3 ``--control`` case (a jittered 87x87 grid, 256 domains, L3's
+   omega) through ``_transfer_run``: within one restart of JAX's 28 / 572.
 29. ``examples/sharded_solve.py`` in one process per visible card (NCCL,
    ``spawn_processes``): ``ShardedDDH``'s direct action, rhs and
    postprocess within 2e-4 of ``DDH``'s, the flagship transfer solve
@@ -169,7 +175,8 @@ subprocesses too.
 Every comparison holds a kernel within 2e-4 of the plain cycle relative to
 the max of u and v, with padded slots exactly 0.  The main-path runs
 (phases 3, 5, 6, 7, 9, 12, 13, 16, 17, 18, 19, 21, 23, 24, 25, 27-32) must
-launch the sparse kernel and no dense one.
+launch the sparse kernel and no dense one, and over them every instance of
+the sparse kernel ((a), (b) and the per-row (c)) must have launched.
 
 Every kernel count is set to 0 just before each main-path run and read just
 after; the ``launches`` of a kernel in the JSON line is the sum over those
@@ -254,10 +261,20 @@ def _compare(wc, p, F, G, wh_maxit, pad_mask, what, variants, reps=3, form=None,
     cycle is timed on its checked call; the kernels after their checked
     calls, in turns (v0, v1, ..., v1, v0), ``reps`` launches a turn, so
     each pair is compared on the card's state of the moment.  ``form`` is
-    the sparse kernel's prebuilt sparse form."""
+    the sparse kernel's prebuilt sparse form.  ``"sparse_tiled"`` runs a
+    per-row stack on the sparse kernel with each row tiled x8 onto layout
+    (b), as the JAX solver does (and the port did before its per-row
+    instance), and reads every 8th row back."""
     import torch
 
     def run(v):
+        if v == "sparse_tiled":
+            r = wc.ROWS_PER_BLOCK
+            tiled = p._replace(Ha=p.Ha.repeat_interleave(r, 0),
+                               inv_mi=p.inv_mi.repeat_interleave(r, 0))
+            u, v = wc.wave_cycle(tiled, F.repeat_interleave(r, 0), G.repeat_interleave(r, 0),
+                                 wh_maxit, r, variant="sparse", sparse=form)
+            return u[::r], v[::r]
         return wc.wave_cycle(p, F, G, wh_maxit, variant=v, sparse=form if v == "sparse" else None,
                              **kw)
 
@@ -309,8 +326,40 @@ def _rates(what, flop_sparse, rows, pad, nt, wh_maxit, res, bound, by):
 
 def _only_sparse(launches, key, what):
     if launches[f"sparse_{key}"] == 0 or any(launches[k] for k in DENSE):
-        _fail(f"{what}: want sparse layout-({'a' if key == 'shared' else 'b'}) launches and "
-              f"no dense ones, got {launches}")
+        layout = {"shared": "a", "grouped": "b", "per_row": "c"}[key]
+        _fail(f"{what}: want sparse layout-({layout}) launches and no dense ones, "
+              f"got {launches}")
+
+
+def _per_row_vs_tiled(what, outs, res):
+    """Print the per-row instance against the x8-tiled route on the same
+    inputs: bitwise equality and the time ratio.  Returns whether equal."""
+    import torch
+
+    same = all(torch.equal(a, b) for a, b in zip(outs["sparse"], outs["sparse_tiled"]))
+    print(f"{what}: per-row {res['sparse'][1]:.3f} ms, tiled x8 {res['sparse_tiled'][1]:.3f} ms "
+          f"({res['sparse_tiled'][1] / res['sparse'][1]:.2f}x); outputs bitwise equal: {same}")
+    return same
+
+
+def _per_row_row(wc, dev, what, outs, res, form, pad, at, form_ms, plain_ms, bound,
+                 dense=None) -> dict:
+    """The ``shapes`` row of a layout-(c) comparison (``_compare`` with
+    ``"sparse"`` and ``"sparse_tiled"``): fails unless the per-row instance
+    gives the tiled route's outputs bitwise; prints each instance's blocks
+    per SM at this shape."""
+    if not _per_row_vs_tiled(what, outs, res):
+        _fail(f"{what}: the per-row instance differs from the x8-tiled route")
+    occ = {k: wc.sparse_blocks_per_sm(pad, form.stride, k == "per_row", dev)
+           for k in ("per_row", "grouped")}
+    print(f"{what}: blocks per SM, per-row instance {occ['per_row']} x {(pad + 31) // 32} "
+          f"warps, {wc.SPARSE_ROWS_PER_BLOCK}-row instance {occ['grouped']}")
+    row = {"at": at, "nnz": _nnz(form), "stride": form.stride, "form_ms": form_ms,
+           "ms": res["sparse"][1], "tiled_ms": res["sparse_tiled"][1], "plain_ms": plain_ms,
+           "bound_ms": bound[0], "bound_by": bound[1], "blocks_per_sm": occ}
+    if dense is not None:
+        row.update(dense_ms=dense, dense="resident (tiled x8)")
+    return row
 
 
 def _masked_normal(rng, mask, dev):
@@ -642,7 +691,7 @@ def _fwi_run(wc, dev, nx: int = 128, deg: int = 3) -> tuple[dict, dict]:
     fem = H1Space(mesh, Basis(deg + 1))
     fs = FaceSpace(fem, mesh.boundary_edges)
     n = fem.ndof
-    a_true = apply_diag_inv_mass(make_diag_inv_mass_op(fem),
+    a_true = apply_diag_inv_mass(make_diag_inv_mass_op(fem, device="cpu"),
                                  linear_functional(fem, wave_speed_coeff)).numpy()
     b = helmholtz_rhs(fem, lambda xy: point_sources(xy, omega)).to(dev)
     obs_idx = torch.as_tensor(np.concatenate([fs.proj, n + fs.proj]), device=dev)
@@ -1043,9 +1092,10 @@ def _l4_run(wc, dev, rng, shapes) -> tuple[dict, dict, dict]:
         _fail(f"L4: success={res.success}, {res.num_iter} restarts; want <= 20 and JAX's "
               "18 +-1")
     _only_sparse(launches, "grouped", "L4")
-    if again != {**dict.fromkeys(again, 0), "sparse_grouped": 2} or not bitwise:
-        _fail(f"L4: the repeated solve launched {again} (want 2: rhs, postprocess) or "
-              f"differs ({bitwise})")
+    _only_sparse(launches, "per_row", "L4 rhs/postprocess")
+    if again != {**dict.fromkeys(again, 0), "sparse_per_row": 2} or not bitwise:
+        _fail(f"L4: the repeated solve launched {again} (want 2 per-row: rhs, postprocess) "
+              f"or differs ({bitwise})")
     if not resid <= 1.2e-4:
         _fail(f"L4: plain-cycle residual {resid:.3e} > 1.2e-4")
 
@@ -1053,11 +1103,16 @@ def _l4_run(wc, dev, rng, shapes) -> tuple[dict, dict, dict]:
     p = ddh.params
     gm = ddh.gmask.cpu().numpy()
     Fc, Gc = _masked_normal(rng, gm, dev), _masked_normal(rng, gm, dev)
-    what = f"L4 layout (c), {ddh.n_domains} rows tiled x{wc.ROWS_PER_BLOCK}, pad {ddh.pad}"
-    res_c, plain_c, _ = _compare(wc, p, Fc, Gc, ddh.wh_maxit, ddh.gmask == 0, what,
-                                 ("sparse",), reps=1, form=ddh.S_sparse)
+    what = f"L4 layout (c), {ddh.n_domains} rows, pad {ddh.pad}"
+    res_c, plain_c, outs_c = _compare(wc, p, Fc, Gc, ddh.wh_maxit, ddh.gmask == 0, what,
+                                      ("sparse", "sparse_tiled"), reps=1, form=ddh.S_sparse)
     bound_c, by_c = _cycle_bound(ddh.S_sparse, 1, ddh.n_domains, ddh.pad, ddh.nt, ddh.wh_maxit)
     print(f"{what}: bound {bound_c:.3f} ms ({by_c}) for the rows it computes")
+    row_c = _per_row_row(
+        wc, dev, what, outs_c, res_c, ddh.S_sparse, ddh.pad,
+        at=f"L4 rhs/postprocess (c), {ddh.n_domains} rows, pad {ddh.pad}, nt {ddh.nt}",
+        form_ms=1e3 * ddh.sparse_seconds, plain_ms=plain_c, bound=(bound_c, by_c))
+    del outs_c
     uidx, _, nu = ddh._domain_groups()
     c = 2 * ddh._fslot_np.shape[1]
     c8 = -(-c // wc.ROWS_PER_BLOCK) * wc.ROWS_PER_BLOCK
@@ -1081,15 +1136,12 @@ def _l4_run(wc, dev, rng, shapes) -> tuple[dict, dict, dict]:
         "form_ms": form_ms_b, "ms": res_b["sparse"][1], "plain_ms": plain_b,
         "bound_ms": bound_b, "bound_by": by_b,
     })
-    shapes["sparse_grouped"].append({
-        "at": f"L4 rhs/postprocess (c), {ddh.n_domains} rows tiled x{wc.ROWS_PER_BLOCK}, "
-              f"pad {ddh.pad}", "nnz": _nnz(ddh.S_sparse), "stride": ddh.S_sparse.stride,
-        "form_ms": 1e3 * ddh.sparse_seconds, "ms": res_c["sparse"][1], "plain_ms": plain_c,
-        "bound_ms": bound_c, "bound_by": by_c,
-    })
+    shapes["sparse_per_row"].append(row_c)
     rec["k1_ms_per_cycle"] = {"probe_b": res_b["sparse"][1], "probe_b_bound": bound_b,
-                              "rhs_c": res_c["sparse"][1], "rhs_c_bound": bound_c}
-    return rec, launches, {"b": res_b["sparse"], "c": res_c["sparse"]}
+                              "rhs_c": res_c["sparse"][1],
+                              "rhs_c_tiled": res_c["sparse_tiled"][1], "rhs_c_bound": bound_c}
+    return rec, launches, {"b": res_b["sparse"], "c": res_c["sparse"], "c_plain_ms": plain_c,
+                           "c_bound": (bound_c, by_c)}
 
 
 def _phases_28_to_32(wc, dev, rng, counts5, ms18, bench20, lomega, total, shapes) -> dict:
@@ -1180,7 +1232,7 @@ def _phases_28_to_32(wc, dev, rng, counts5, ms18, bench20, lomega, total, shapes
     # --- 30. the flagship transfer solve: rhs_split="mass", then CUDDH_DEBUG=1 -------
     t30 = time.perf_counter()
     fem = H1Space(Mesh2D.uniform_rect(cfg.nx, -1.0, 1.0, cfg.nx, -1.0, 1.0), Basis(cfg.deg + 1))
-    a_nodal = apply_diag_inv_mass(make_diag_inv_mass_op(fem),
+    a_nodal = apply_diag_inv_mass(make_diag_inv_mass_op(fem, device="cpu"),
                                   linear_functional(fem, wave_speed_coeff)).numpy()
     b = helmholtz_rhs(fem, lambda xy: point_sources(xy, cfg.omega)).to(dev)
     wc.reset_launches()
@@ -1333,7 +1385,7 @@ def main() -> int:
     omega = cfg.omega
     fem = H1Space(Mesh2D.uniform_rect(nx, -1.0, 1.0, nx, -1.0, 1.0), Basis(deg + 1))
     a_nodal = apply_diag_inv_mass(
-        make_diag_inv_mass_op(fem), linear_functional(fem, wave_speed_coeff)
+        make_diag_inv_mass_op(fem, device="cpu"), linear_functional(fem, wave_speed_coeff)
     ).numpy()
     t0 = time.perf_counter()
     ddh = DDH(omega, a_nodal, fem, nx=nx, ny=nx, block_size=cfg.block_size,
@@ -1361,7 +1413,7 @@ def main() -> int:
                                  ddh.wh_maxit)
     _rates("wave cycle (a), flagship", _cycle_flop(form_a, ddh.n_domains, ddh.nt, ddh.wh_maxit),
            ddh.n_domains, ddh.pad, ddh.nt, ddh.wh_maxit, res_a, bound_a, by_a)
-    shapes = {"sparse_shared": [], "sparse_grouped": []}
+    shapes = {"sparse_shared": [], "sparse_grouped": [], "sparse_per_row": []}
     shapes["sparse_shared"].append({
         "at": f"flagship, {ddh.n_domains} rows, pad {ddh.pad}, nt {ddh.nt}", "nnz": nnz_a,
         "stride": form_a.stride, "form_ms": form_ms_a, "ms": res_a["sparse"][1], "dense_ms": res_a["resident"][1],
@@ -1405,7 +1457,7 @@ def main() -> int:
     labels, _ = coordinate_bisection_labels(mesh, ucfg.n_domains)
     ufem = H1Space(mesh, Basis(ucfg.deg + 1))
     ua = apply_diag_inv_mass(
-        make_diag_inv_mass_op(ufem), linear_functional(ufem, wave_speed_coeff)
+        make_diag_inv_mass_op(ufem, device="cpu"), linear_functional(ufem, wave_speed_coeff)
     ).numpy()
     uddh = DDH(ucfg.omega, ua, ufem, element_labels=labels, wh_maxit=ucfg.wh_maxit,
                device=dev)
@@ -1438,19 +1490,18 @@ def main() -> int:
     })
     um = uddh.gmask.cpu().numpy()
     Fc, Gc = _masked_normal(rng, um, dev), _masked_normal(rng, um, dev)
-    what = f"wave cycle (c), {uddh.n_domains} rows tiled x{wc.ROWS_PER_BLOCK}"
-    res_c, plain_ms_c, _ = _compare(wc, up, Fc, Gc, uddh.wh_maxit, uddh.gmask == 0, what,
-                                    ("sparse", "resident"), form=uddh.S_sparse)
+    what = f"wave cycle (c), {uddh.n_domains} rows, one S each"
+    res_c, plain_ms_c, outs_c = _compare(wc, up, Fc, Gc, uddh.wh_maxit, uddh.gmask == 0, what,
+                                         ("sparse", "sparse_tiled", "resident"),
+                                         form=uddh.S_sparse)
     bound_c, by_c = _cycle_bound(uddh.S_sparse, 1, uddh.n_domains, uddh.pad, uddh.nt,
                                  uddh.wh_maxit)
     print(f"{what}: bound {bound_c:.3f} ms ({by_c}) for the {uddh.n_domains} rows it computes")
-    shapes["sparse_grouped"].append({
-        "at": f"unstructured per-row (c), {uddh.n_domains} rows tiled x{wc.ROWS_PER_BLOCK}",
-        "nnz": _nnz(uddh.S_sparse), "stride": uddh.S_sparse.stride,
-        "form_ms": 1e3 * uddh.sparse_seconds,
-        "ms": res_c["sparse"][1], "dense_ms": res_c["resident"][1], "dense": "resident",
-        "plain_ms": plain_ms_c, "bound_ms": bound_c, "bound_by": by_c,
-    })
+    shapes["sparse_per_row"].append(_per_row_row(
+        wc, dev, what, outs_c, res_c, uddh.S_sparse, uddh.pad,
+        at=f"unstructured per-row (c), {uddh.n_domains} rows, pad {uddh.pad}, nt {uddh.nt}",
+        form_ms=1e3 * uddh.sparse_seconds, plain_ms=plain_ms_c, bound=(bound_c, by_c),
+        dense=res_c["resident"][1]))
     del uddh, gp, Fb, Gb
 
     # --- 5. the flagship transfer solve ----------------------------------------
@@ -2026,9 +2077,15 @@ def main() -> int:
     cmp4 = _phases_28_to_32(wc, dev, rng, counts5, ms18, bench20, lomega, total, shapes)
     print(f"phases 1-32: {time.perf_counter() - t_main:.1f} s")
     print(f"kernel launches over the main-path runs: {total}")
+    missing = [k for k in ("sparse_shared", "sparse_grouped", "sparse_per_row") if not total[k]]
+    if missing:
+        _fail(f"the main-path runs launched no {', '.join(missing)} kernel: {total}")
     for row in (r for rows in shapes.values() for r in rows):
         dense = (f" against {row['dense']} {row['dense_ms']:.3f} ms "
                  f"({row['dense_ms'] / row['ms']:.2f}x)" if "dense" in row else "")
+        if "tiled_ms" in row:
+            dense += (f", the x8-tiled route {row['tiled_ms']:.3f} ms "
+                      f"({row['tiled_ms'] / row['ms']:.2f}x)")
         print(f"sparse kernel at {row['at']}: {row['ms']:.3f} ms{dense}, plain "
               f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms ({row['bound_by']}, "
               f"{row['bound_ms'] / row['ms']:.1%} of it), nnz {row['nnz']} (stride "
@@ -2049,10 +2106,14 @@ def main() -> int:
               res_a["sparse"][1], plain_ms, bound_a, by_a, nnz=nnz_a, stride=form_a.stride, form_ms=form_ms_a,
               shapes=shapes["sparse_shared"]),
         entry("wave_cycle sparse (b) grouped S", "wave_cycle_sparse.cu", 201, "sparse_grouped",
-              max(res_b["sparse"][0], res_c["sparse"][0], res_sb["sparse"][0], cmp4["b"][0],
-                  cmp4["c"][0]),
+              max(res_b["sparse"][0], res_c["sparse_tiled"][0], res_sb["sparse"][0],
+                  cmp4["b"][0]),
               res_sb["sparse"][1], plain_ms_sb, bound_sb, by_sb, nnz=_nnz(form_sb),
               stride=form_sb.stride, form_ms=form_ms_sb, shapes=shapes["sparse_grouped"]),
+        entry("wave_cycle sparse (c) per-row S", "wave_cycle_sparse.cu", 233, "sparse_per_row",
+              max(res_c["sparse"][0], cmp4["c"][0]), cmp4["c"][1], cmp4["c_plain_ms"],
+              *cmp4["c_bound"], tiled_ms=shapes["sparse_per_row"][-1]["tiled_ms"],
+              shapes=shapes["sparse_per_row"]),
         entry("wave_cycle (a) shared S", "wave_cycle.cu", 69, "shared", res_a["resident"][0],
               res_a["resident"][1], plain_ms, bound_a, by_a),
         entry("wave_cycle (b) grouped S", "wave_cycle.cu", 201, "grouped",

@@ -179,7 +179,7 @@ def run_bench(device="cuda", nx: int = 128, skip_configs: bool = False,
     mesh = Mesh2D.uniform_rect(nx, -1.0, 1.0, nx, -1.0, 1.0)
     fem = H1Space(mesh, Basis(deg + 1))
     b_a = linear_functional(fem, wave_speed_coeff, dtype=torch.float32)
-    mi = make_diag_inv_mass_op(fem, dtype=torch.float32)
+    mi = make_diag_inv_mass_op(fem, dtype=torch.float32, device="cpu")
     a_nodal = apply_diag_inv_mass(mi, b_a).numpy().astype(np.float64)
     ddh = DDH(omega, a_nodal, fem, nx=nx, ny=nx, device=device)
     setup_seconds = time.perf_counter() - t0

@@ -5,9 +5,13 @@
 // by wave_cycle_pallas) in its stiffness layouts:
 //   (a) shared: one S for every subdomain row (s_group_size = 0);
 //   (b) grouped: one S per run of s_group_size rows (a multiple of kRows),
-//       run g against S[g].  The Pallas kernel's per-row layout (c) reaches
-//       this one through the wrapper, which tiles each row x8 (s_group_size
-//       = 8), as the JAX solver does.
+//       run g against S[g];
+//   (c) per row: row r against S[r], in an instance of one row per block
+//       (wave_cycle_sparse_per_row_launch).  The JAX solver tiles each row
+//       x8 onto (b), because the TPU's 8-row sublane tile makes the replicas
+//       free; here they would be 8x the FMAs and shared-memory reads, so no
+//       row is computed twice.  (The dense kernels, forced only, still take
+//       (c) through the wrapper's x8 tiling: their blocks need runs of 8.)
 // It computes what the Pallas kernel computes: wh_maxit WaveHoltz
 // fixed-point iterations, each restarting from (p, q) = (u, v) and
 // (u, v) = K0 (u, v), of nt staggered-leapfrog steps
@@ -60,6 +64,13 @@
 //     of its column it does 2 kRows FMAs against p[r][k] and p_half[r][k];
 //   * kRows = 4 divides every run length the paths use (8, 120, 192) and
 //     gives 256 blocks for the flagship's 1,024 rows, two per SM;
+//   * the rows per block are a template parameter R: kRows for layouts (a)
+//     and (b), 1 for layout (c), where each block reads its own row's S.
+//     With one row the (k, S[k, i]) loads are shared by 2 FMAs, not 2
+//     kRows, but the row state is 16 pad bytes, not 64 pad, and the
+//     instance asks for at most 48 registers a thread (two 640-thread
+//     blocks' worth), so the blocks the staged S leaves room for fit on an
+//     SM (four at L4's pad 320);
 //   * at most 640 threads (pad <= 640) leave 96 registers a thread for the
 //     j loop to keep its loads in flight (a 1,024-thread bound caps them at
 //     64, and ran slower on the card);
@@ -125,7 +136,9 @@ __device__ void order_for_banks(short* wI, float* wV, int n, int longest, int la
   }
 }
 
-__global__ void __launch_bounds__(kMaxThreads, 1)
+// R rows per block: kRows (layouts (a), (b)) or 1 (layout (c), one S per row).
+template <int R>
+__global__ void __launch_bounds__(kMaxThreads, R == 1 ? 2 : 1)
 wave_cycle_sparse_kernel(const int* __restrict__ ptr, const short* __restrict__ idx,
                          const float* __restrict__ val, const short* __restrict__ order,
                          int stride, const float* __restrict__ F, const float* __restrict__ G,
@@ -135,13 +148,14 @@ wave_cycle_sparse_kernel(const int* __restrict__ ptr, const short* __restrict__ 
                          int s_group_size, float dt, float K0) {
   extern __shared__ float4 smem4[];
   __shared__ int warp_len[kMaxThreads / 32];
-  float* sP = reinterpret_cast<float*>(smem4);  // [2 buffers][2 kRows][pad]: p rows, p_half rows
-  float* sV = sP + 4 * kRows * pad;             // [stride] values, slot-interleaved
+  float* sP = reinterpret_cast<float*>(smem4);  // [2 buffers][2 R][pad]: p rows, p_half rows
+  float* sV = sP + 4 * R * pad;                 // [stride] values, slot-interleaved
   short* sI = reinterpret_cast<short*>(sV + stride);  // [stride] row indices, likewise
-  const int row0 = blockIdx.x * kRows;
+  const int row0 = blockIdx.x * R;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 
-  // layout (b): this block's rows all lie in run row0 / s_group_size
+  // layouts (b), (c): this block's rows all lie in run row0 / s_group_size
+  // (s_group_size = 1 in the per-row instance: row r against S[r])
   const int group = s_group_size > 0 ? row0 / s_group_size : 0;
   const bool active = threadIdx.x < pad;
   const int c = active ? order[static_cast<size_t>(group) * pad + threadIdx.x] : 0;
@@ -171,10 +185,10 @@ wave_cycle_sparse_kernel(const int* __restrict__ ptr, const short* __restrict__ 
   const float* myV = sV + base + lane;
   const short* myI = sI + base + lane;
 
-  float f[kRows], g[kRows], ha[kRows], m[kRows];
-  float p[kRows], q[kRows], u[kRows], v[kRows];
+  float f[R], g[R], ha[R], m[R];
+  float p[R], q[R], u[R], v[R];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
+  for (int r = 0; r < R; ++r) {
     const bool ok = active && row0 + r < ndom;
     const size_t i = static_cast<size_t>(row0 + r) * pad + c;
     f[r] = ok ? F[i] : 0.f;
@@ -185,29 +199,29 @@ wave_cycle_sparse_kernel(const int* __restrict__ ptr, const short* __restrict__ 
     v[r] = 0.f;
   }
   const float half_dt = 0.5f * dt;
-  const int buffer = 2 * kRows * pad;  // floats per [p ; p_half] buffer
-  int cur = 0;                         // the buffer this step reads
+  const int buffer = 2 * R * pad;  // floats per [p ; p_half] buffer
+  int cur = 0;                     // the buffer this step reads
 
   for (int it = 0; it < wh_maxit; ++it) {
     float* Pw = sP + cur * buffer;
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
+    for (int r = 0; r < R; ++r) {
       p[r] = u[r];
       q[r] = v[r];
       u[r] = K0 * u[r];
       v[r] = K0 * v[r];
       if (active) {
         Pw[r * pad + c] = p[r];
-        Pw[(kRows + r) * pad + c] = p[r] - half_dt * q[r];
+        Pw[(R + r) * pad + c] = p[r] - half_dt * q[r];
       }
     }
     __syncthreads();  // rows and S visible; every read of the last step is done
 
     for (int t = 0; t < nt; ++t) {
       const float* P = sP + cur * buffer;
-      float zp[kRows], zh[kRows];
+      float zp[R], zh[R];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
+      for (int r = 0; r < R; ++r) {
         zp[r] = 0.f;
         zh[r] = 0.f;
       }
@@ -215,9 +229,9 @@ wave_cycle_sparse_kernel(const int* __restrict__ ptr, const short* __restrict__ 
         const int k = myI[32 * j];
         const float s = myV[32 * j];
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) {
+        for (int r = 0; r < R; ++r) {
           zp[r] = fmaf(P[r * pad + k], s, zp[r]);
-          zh[r] = fmaf(P[(kRows + r) * pad + k], s, zh[r]);
+          zh[r] = fmaf(P[(R + r) * pad + k], s, zh[r]);
         }
       }
 
@@ -228,7 +242,7 @@ wave_cycle_sparse_kernel(const int* __restrict__ ptr, const short* __restrict__ 
       cur ^= 1;
       float* Pn = sP + cur * buffer;
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
+      for (int r = 0; r < R; ++r) {
         const float dq = (zp[r] - ha[r] * q[r] + cs0 * f[r] + sn0 * g[r]) * m[r];
         const float q_half = q[r] + half_dt * dq;
         const float p2 = p[r] - dt * q_half;
@@ -240,7 +254,7 @@ wave_cycle_sparse_kernel(const int* __restrict__ ptr, const short* __restrict__ 
         v[r] += kt * q2;
         if (active) {
           Pn[r * pad + c] = p2;
-          Pn[(kRows + r) * pad + c] = p2 - half_dt * q2;
+          Pn[(R + r) * pad + c] = p2 - half_dt * q2;
         }
       }
       // the new rows are visible, and every read of the buffer the next
@@ -250,7 +264,7 @@ wave_cycle_sparse_kernel(const int* __restrict__ ptr, const short* __restrict__ 
   }
 
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
+  for (int r = 0; r < R; ++r) {
     if (active && row0 + r < ndom) {
       const size_t i = static_cast<size_t>(row0 + r) * pad + c;
       u_out[i] = u[r];
@@ -267,15 +281,52 @@ int wave_cycle_sparse_rows_per_block() { return kRows; }
 
 int wave_cycle_sparse_max_pad() { return kMaxThreads; }
 
-// Dynamic shared memory one block needs: the two [p ; p_half] buffers and
-// one S's values and row indices.
-long long wave_cycle_sparse_shared_memory_bytes(int pad, int stride) {
-  return 4LL * 4 * kRows * pad + 6LL * stride;
+// Dynamic shared memory one block of `rows` rows (kRows or 1) needs: the
+// two [p ; p_half] buffers and one S's values and row indices.
+long long wave_cycle_sparse_shared_memory_bytes(int rows, int pad, int stride) {
+  return 4LL * 4 * rows * pad + 6LL * stride;
 }
 
 const char* wave_cycle_sparse_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+
+}  // extern "C"
+
+namespace {
+
+template <int R>
+cudaError_t set_shared_memory(int pad, int stride, long long* smem) {
+  *smem = wave_cycle_sparse_shared_memory_bytes(R, pad, stride);
+  return cudaFuncSetAttribute(wave_cycle_sparse_kernel<R>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(*smem));
+}
+
+template <int R>
+int launch(const int* ptr, const short* idx, const float* val, const short* order, int stride,
+           const float* F, const float* G, const float* Ha, const float* mi,
+           const float* tables, float* u, float* v, int ndom, int pad, int nt, int wh_maxit,
+           int s_group_size, float dt, float K0, int device, void* stream) {
+  if (pad < 1 || pad > kMaxThreads || stride < 1 || (s_group_size % R) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  long long smem = 0;
+  err = set_shared_memory<R>(pad, stride, &smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (ndom + R - 1) / R;
+  const int threads = (pad + 31) / 32 * 32;
+  wave_cycle_sparse_kernel<R><<<blocks, threads, static_cast<size_t>(smem),
+                                static_cast<cudaStream_t>(stream)>>>(
+      ptr, idx, val, order, stride, F, G, Ha, mi, tables, u, v, ndom, pad, nt, wh_maxit,
+      s_group_size, dt, K0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
 
 // Launch one cycle on `stream`.  All pointers are device arrays, contiguous:
 // the sparse form ptr int32 (ngroups, pad + 1), idx int16 and val float32
@@ -291,21 +342,43 @@ int wave_cycle_sparse_launch(const int* ptr, const short* idx, const float* val,
                              const float* Ha, const float* mi, const float* tables, float* u,
                              float* v, int ndom, int pad, int nt, int wh_maxit, int s_group_size,
                              float dt, float K0, int device, void* stream) {
-  if (pad < 1 || pad > kMaxThreads || stride < 1 || (s_group_size % kRows) != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long smem = wave_cycle_sparse_shared_memory_bytes(pad, stride);
-  err = cudaFuncSetAttribute(wave_cycle_sparse_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (ndom + kRows - 1) / kRows;
+  return launch<kRows>(ptr, idx, val, order, stride, F, G, Ha, mi, tables, u, v, ndom, pad, nt,
+                       wh_maxit, s_group_size, dt, K0, device, stream);
+}
+
+// Layout (c): as wave_cycle_sparse_launch with one S per row (ngroups =
+// ndom, row r against group r), one row per block.
+int wave_cycle_sparse_per_row_launch(const int* ptr, const short* idx, const float* val,
+                                     const short* order, int stride, const float* F,
+                                     const float* G, const float* Ha, const float* mi,
+                                     const float* tables, float* u, float* v, int ndom, int pad,
+                                     int nt, int wh_maxit, float dt, float K0, int device,
+                                     void* stream) {
+  return launch<1>(ptr, idx, val, order, stride, F, G, Ha, mi, tables, u, v, ndom, pad, nt,
+                   wh_maxit, 1, dt, K0, device, stream);
+}
+
+// Blocks of `rows` rows (kRows or 1) that fit on one SM of `device` at this
+// pad and stride (registers, threads and shared memory), or -1 on error.
+int wave_cycle_sparse_blocks_per_sm(int rows, int pad, int stride, int device) {
+  if ((rows != kRows && rows != 1) || pad < 1 || pad > kMaxThreads || stride < 1) return -1;
+  if (cudaSetDevice(device) != cudaSuccess) return -1;
+  long long smem = 0;
+  int blocks = 0;
   const int threads = (pad + 31) / 32 * 32;
-  wave_cycle_sparse_kernel<<<blocks, threads, static_cast<size_t>(smem),
-                             static_cast<cudaStream_t>(stream)>>>(
-      ptr, idx, val, order, stride, F, G, Ha, mi, tables, u, v, ndom, pad, nt, wh_maxit,
-      s_group_size, dt, K0);
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t err;
+  if (rows == 1) {
+    err = set_shared_memory<1>(pad, stride, &smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, wave_cycle_sparse_kernel<1>,
+                                                          threads, static_cast<size_t>(smem));
+  } else {
+    err = set_shared_memory<kRows>(pad, stride, &smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, wave_cycle_sparse_kernel<kRows>, threads, static_cast<size_t>(smem));
+  }
+  return err == cudaSuccess ? blocks : -1;
 }
 
 }  // extern "C"

@@ -303,7 +303,7 @@ def run_ddh(
 
     # nodal interpolation of the coefficient, and the forcing (host, float64)
     b_a = linear_functional(fem, wave_speed_coeff)
-    a_nodal = apply_diag_inv_mass(make_diag_inv_mass_op(fem), b_a).numpy()
+    a_nodal = apply_diag_inv_mass(make_diag_inv_mass_op(fem, device="cpu"), b_a).numpy()
     b = helmholtz_rhs(fem, lambda xy: point_sources(xy, omega)).to(device)
 
     t_setup = time.perf_counter()
@@ -441,7 +441,7 @@ def run_ddh_multi_source(
     mesh = Mesh2D.uniform_rect(nx, -1.0, 1.0, nx, -1.0, 1.0)
     fem = H1Space(mesh, Basis(deg + 1))
     b_a = linear_functional(fem, wave_speed_coeff)
-    a_nodal = apply_diag_inv_mass(make_diag_inv_mass_op(fem), b_a).numpy()
+    a_nodal = apply_diag_inv_mass(make_diag_inv_mass_op(fem, device="cpu"), b_a).numpy()
     bs = ring_sources(fem, omega, n_sources, source_radius).to(device)
     n_shard, rank = 1, 0
     if shard_sources:
@@ -656,7 +656,7 @@ def run_helmholtz_ddh(
     # host setup, float64
     a2, af = project_coefficients(fem, fs, wave_speed_coeff, dtype=dtype)
     b_a = linear_functional(fem, wave_speed_coeff)
-    a_nodal = apply_diag_inv_mass(make_diag_inv_mass_op(fem), b_a).numpy()
+    a_nodal = apply_diag_inv_mass(make_diag_inv_mass_op(fem, device="cpu"), b_a).numpy()
     b = helmholtz_rhs(fem, lambda xy: point_sources(xy, omega), dtype=dtype).to(device)
     op = make_helmholtz_op(omega, a2, af, fem, fs, dtype=dtype, device=device)
 

@@ -73,7 +73,7 @@ def solve(nx: int, deg: int, block_size: int, m: int, maxit: int, tol: float,
         torch.device("cpu")
     omega = 2 * np.pi * nx / 10
     fem = H1Space(Mesh2D.uniform_rect(nx, -1.0, 1.0, nx, -1.0, 1.0), Basis(deg + 1))
-    a_nodal = apply_diag_inv_mass(make_diag_inv_mass_op(fem),
+    a_nodal = apply_diag_inv_mass(make_diag_inv_mass_op(fem, device="cpu"),
                                   linear_functional(fem, wave_speed_coeff)).numpy()
     b = helmholtz_rhs(fem, lambda xy: point_sources(xy, omega)).to(dev)
     ddh = DDH(omega, a_nodal, fem, nx=nx, ny=nx, block_size=block_size, device=dev)

@@ -53,6 +53,7 @@ from ..ops.stiffness import StiffnessOp, apply_stiffness, make_stiffness_op
 from ..ops.structured import GridH1Space, apply_mass_structured, apply_stiffness_structured
 from ..solvers.gmres import gmres
 from ..spaces.h1 import FaceSpace, H1Space
+from ..utils.device import check_device
 from ..utils.quadrature import QuadratureRule
 
 
@@ -78,11 +79,13 @@ def make_helmholtz_op(
     dtype=torch.float64,
     kron: bool | None = None,
     *,
-    device="cpu",
+    device="cuda",
 ) -> HelmholtzOp:
     """``kron=None`` chooses the 1D-factorised dense-matmul path
     (``ops/kron.py``) when ``space`` is a ``GridH1Space``; it then builds no
-    generic stiffness or mass data."""
+    generic stiffness or mass data.  Built on ``device``: the card unless
+    the caller asks for the CPU."""
+    device = check_device(device)
     if kron is None:
         kron = isinstance(space, GridH1Space)
     ks = km = stiffness = mass = None
@@ -154,8 +157,9 @@ class HelmholtzTemplate(NamedTuple):
 
 
 def make_helmholtz_template(
-    space: H1Space, fs: FaceSpace, dtype=torch.float64, *, device="cpu"
+    space: H1Space, fs: FaceSpace, dtype=torch.float64, *, device="cuda"
 ) -> HelmholtzTemplate:
+    device = check_device(device)
     nq = variable_coeff_n_quad(space)
     return HelmholtzTemplate(
         stiffness=make_stiffness_op(space, dtype=dtype, device=device),
@@ -204,14 +208,14 @@ def project_coefficients(
     quad = QuadratureRule(2 * space.n_basis, QuadratureRule.GaussLegendre)
 
     b = linear_functional(space, lambda xy: a_fn(xy) ** 2, quad, dtype=dtype)
-    mass = make_mass_op(space, dtype=dtype)
-    pinv = make_diag_inv_mass_op(space, dtype=dtype)
+    mass = make_mass_op(space, dtype=dtype, device="cpu")
+    pinv = make_diag_inv_mass_op(space, dtype=dtype, device="cpu")
     out = gmres(lambda x: apply_mass(mass, x), b, m=5, maxit=10, tol=1e-12,
                 precond=lambda x: apply_diag_inv_mass(pinv, x))
 
     bf = face_linear_functional(fs, a_fn, quad, dtype=dtype)
-    fmass = make_face_mass_op(fs, dtype=dtype)
-    fpinv = make_diag_inv_face_mass_op(fs, dtype=dtype)
+    fmass = make_face_mass_op(fs, dtype=dtype, device="cpu")
+    fpinv = make_diag_inv_face_mass_op(fs, dtype=dtype, device="cpu")
     outf = gmres(lambda x: apply_face_mass(fmass, x), bf, m=5, maxit=10, tol=1e-12,
                  precond=lambda x: apply_diag_inv_face_mass(fpinv, x))
     return out.x.numpy(), outf.x.numpy()

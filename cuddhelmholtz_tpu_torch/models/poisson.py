@@ -22,6 +22,7 @@ from ..ops.functional import face_linear_functional, linear_functional
 from ..ops.stiffness import StiffnessOp, apply_stiffness, make_stiffness_op
 from ..solvers.gmres import GmresResult, gmres
 from ..spaces.h1 import FaceSpace, H1Space
+from ..utils.device import check_device
 
 
 class PoissonOp(NamedTuple):
@@ -30,7 +31,10 @@ class PoissonOp(NamedTuple):
 
 
 def make_poisson_op(space: H1Space, fs: FaceSpace, dtype=torch.float64, *,
-                    device="cpu") -> PoissonOp:
+                    device="cuda") -> PoissonOp:
+    """Poisson-operator data on ``device``: the card unless the caller asks
+    for the CPU."""
+    device = check_device(device)
     return PoissonOp(
         stiffness=make_stiffness_op(space, dtype=dtype, device=device),
         face_proj=torch.as_tensor(fs.proj, dtype=torch.int64, device=device),
@@ -61,8 +65,8 @@ def solve_poisson(
 
     # project the boundary data onto the face space: <q, phi> = <g, phi>
     y = face_linear_functional(fs, g, dtype=dtype)
-    fmass = make_face_mass_op(fs, dtype=dtype)
-    fpinv = make_diag_inv_face_mass_op(fs, dtype=dtype)
+    fmass = make_face_mass_op(fs, dtype=dtype, device="cpu")
+    fpinv = make_diag_inv_face_mass_op(fs, dtype=dtype, device="cpu")
     out_q = gmres(lambda x: apply_face_mass(fmass, x), y, m=5, maxit=10, tol=1e-12,
                   precond=lambda x: apply_diag_inv_face_mass(fpinv, x))
 

@@ -7,8 +7,10 @@ Pallas kernel's three stiffness layouts:
 
   (a) one shared (pad, pad) S;
   (b) an (ngroups, pad, pad) stack with rows in runs of ``s_group_size``;
-  (c) one S per row (ndom, pad, pad): each row is tiled x8 onto (b), as the
-      JAX package's solver does (its ``solvers/ddh.py::_wave_cycle``).
+  (c) one S per row (ndom, pad, pad): the sparse kernel's per-row instance,
+      one row per block, where the JAX package's solver tiles each row x8
+      onto (b) (its ``solvers/ddh.py::_wave_cycle``: free on the TPU's 8-row
+      tile, 8x the work here).  ``cycle_route`` decides.
 
 Three kernels serve every layout, chosen by shape and non-zero count
 (``kernel_variant``): ``csrc/wave_cycle_sparse.cu`` applies S from its exact
@@ -48,7 +50,7 @@ WH_MAXIT = 5  # fixed-point WaveHoltz iterations per apply
 # kRows of the dense kernels, and the unit of every run of rows sharing one S
 # (checked when a library loads); the sparse kernel's kRows divides it
 ROWS_PER_BLOCK = 8
-SPARSE_ROWS_PER_BLOCK = 4  # kRows in csrc/wave_cycle_sparse.cu
+SPARSE_ROWS_PER_BLOCK = 4  # kRows in csrc/wave_cycle_sparse.cu, layouts (a) and (b)
 SPARSE_MAX_PAD = 640  # csrc/wave_cycle_sparse.cu: one thread per column
 MAX_THREADS = 512  # kMaxThreads in csrc/wave_cycle.cu: two threads per column
 STREAMED_MAX_PAD = 1024  # csrc/wave_cycle_streamed.cu: pad / 2 threads, at most 512
@@ -85,20 +87,21 @@ def streamed_shared_memory_bytes(pad: int) -> int:
     return 4 * (2 * ROWS_PER_BLOCK + ROWS_PER_BLOCK + 3 * 8) * pad
 
 
-def sparse_shared_memory_bytes(pad: int, stride: int) -> int:
+def sparse_shared_memory_bytes(pad: int, stride: int, rows: int = SPARSE_ROWS_PER_BLOCK) -> int:
     """Dynamic shared memory one block of the sparse kernel needs: two
-    buffers of the stacked [p ; p_half] rows of its SPARSE_ROWS_PER_BLOCK
-    subdomains, and one S's ``stride`` staged values (4 B) and row indices
-    (2 B)."""
-    return 4 * 4 * SPARSE_ROWS_PER_BLOCK * pad + 6 * stride
+    buffers of the stacked [p ; p_half] rows of its ``rows`` subdomains
+    (SPARSE_ROWS_PER_BLOCK, or 1 in the per-row instance of layout (c)), and
+    one S's ``stride`` staged values (4 B) and row indices (2 B)."""
+    return 4 * 4 * rows * pad + 6 * stride
 
 
 def kernel_variant(pad: int, limit: int, stride: int | None = None,
-                   variant: str | None = None) -> str:
+                   variant: str | None = None, per_row: bool = False) -> str:
     """The kernel that runs a cycle at ``pad`` on a card that allows
     ``limit`` bytes of shared memory per block, for a sparse form of
     ``stride`` entries per group (``SparseS.stride``: the non-zeros as the
-    kernel stages them, at least the nnz; None: no form).
+    kernel stages them, at least the nnz; None: no form).  ``per_row``: a
+    layout-(c) stack, which the sparse kernel runs one row per block.
 
     By default: ``"sparse"`` when the form and the row state fit (pad <=
     SPARSE_MAX_PAD and ``sparse_shared_memory_bytes`` <= limit), else
@@ -106,9 +109,10 @@ def kernel_variant(pad: int, limit: int, stride: int | None = None,
     MAX_THREADS / 2, else ``"streamed"`` (pad <= STREAMED_MAX_PAD).  The
     choice rests on these shapes alone.  ``variant`` names the kernel
     instead.  Raises when the chosen kernel does not take the shape."""
+    rows = 1 if per_row else SPARSE_ROWS_PER_BLOCK
     fits = {
         "sparse": stride is not None and pad <= SPARSE_MAX_PAD
-        and sparse_shared_memory_bytes(pad, stride) <= limit,
+        and sparse_shared_memory_bytes(pad, stride, rows) <= limit,
         "resident": 2 * pad <= MAX_THREADS and shared_memory_bytes(pad) <= limit,
         "streamed": pad <= STREAMED_MAX_PAD and streamed_shared_memory_bytes(pad) <= limit,
     }
@@ -121,7 +125,7 @@ def kernel_variant(pad: int, limit: int, stride: int | None = None,
     elif fits[variant]:
         return variant
     need = {
-        "sparse": None if stride is None else sparse_shared_memory_bytes(pad, stride),
+        "sparse": None if stride is None else sparse_shared_memory_bytes(pad, stride, rows),
         "resident": shared_memory_bytes(pad),
         "streamed": streamed_shared_memory_bytes(pad),
     }
@@ -131,6 +135,47 @@ def kernel_variant(pad: int, limit: int, stride: int | None = None,
         f"allows {limit} B; pad <= {SPARSE_MAX_PAD} (sparse), {MAX_THREADS // 2} "
         f"(resident), {STREAMED_MAX_PAD} (streamed)"
     )
+
+
+class Route(NamedTuple):
+    """How ``wave_cycle`` runs one cycle on the kernel it chose."""
+
+    key: str  # its count in ``wave_cycle.launches``
+    rows: int  # rows the kernel computes
+    groups: int  # stiffness matrices it reads (sparse-form groups)
+    tile: int  # copies of each caller row among them (1: none)
+    s_group_size: int  # rows per matrix it is given (0: one shared S)
+
+
+def cycle_route(variant: str, ndom: int, ngroups: int | None,
+                s_group_size: int | None = None) -> Route:
+    """The route of a cycle of ``ndom`` rows on ``variant``'s kernel, for a
+    shared S (``ngroups`` None) or a stack of ``ngroups`` matrices, in runs
+    of ``s_group_size`` rows (layout (b)) or one per row (layout (c), no
+    ``s_group_size``).  The sparse kernel runs (c) in its per-row instance,
+    ``ndom`` rows against ``ndom`` groups with no copies; the dense kernels'
+    blocks need runs of ROWS_PER_BLOCK rows, so they take each row
+    ROWS_PER_BLOCK times in layout (b), as the JAX solver does.  Raises when
+    the rows do not match the groups."""
+    prefix = {"sparse": "sparse_", "resident": "", "streamed": "streamed_"}[variant]
+    if ngroups is None:
+        if s_group_size is not None:
+            raise ValueError("wave_cycle: s_group_size needs a 3-D stiffness stack")
+        return Route(prefix + "shared", ndom, 1, 1, 0)
+    if s_group_size is not None:
+        _check_groups(ngroups, s_group_size, ndom)
+        if s_group_size % ROWS_PER_BLOCK:
+            raise ValueError(
+                f"wave_cycle: s_group_size={s_group_size} must be a multiple of "
+                f"{ROWS_PER_BLOCK} (the rows of one block share one S)"
+            )
+        return Route(prefix + "grouped", ndom, ngroups, 1, s_group_size)
+    if ngroups != ndom:
+        raise ValueError(f"wave_cycle: a per-row stack of {ngroups} matrices for {ndom} rows")
+    if variant == "sparse":
+        return Route("sparse_per_row", ndom, ndom, 1, 1)
+    r = ROWS_PER_BLOCK
+    return Route(prefix + "grouped", r * ndom, ndom, r, r)
 
 
 class SparseS(NamedTuple):
@@ -336,9 +381,13 @@ def _library(variant: str) -> ctypes.CDLL:
     rows = fn("rows_per_block", [], i32)()
     if variant == "sparse":
         fn("launch", [ptr] * 4 + [i32] + [ptr] * 7 + [i32] * 5 + [f32, f32, i32, ptr], i32)
-        smem = fn("shared_memory_bytes", [i32, i32], ctypes.c_longlong)
+        fn("per_row_launch", [ptr] * 4 + [i32] + [ptr] * 7 + [i32] * 4 + [f32, f32, i32, ptr],
+           i32)
+        fn("blocks_per_sm", [i32] * 4, i32)
+        smem = fn("shared_memory_bytes", [i32] * 3, ctypes.c_longlong)
         same = (fn("max_pad", [], i32)() == SPARSE_MAX_PAD and rows == SPARSE_ROWS_PER_BLOCK
-                and smem(632, 10336) == sparse_shared_memory_bytes(632, 10336))
+                and all(smem(r, 632, 10336) == sparse_shared_memory_bytes(632, 10336, r)
+                        for r in (1, SPARSE_ROWS_PER_BLOCK)))
     else:
         fn("launch", [ptr] * 8 + [i32] * 5 + [f32, f32, i32, ptr], i32)
         smem = fn("shared_memory_bytes", [i32], ctypes.c_longlong)
@@ -416,70 +465,65 @@ def wave_cycle(
     prebuilt by the caller for its S (built here when it is None and the
     sparse kernel may run).  ``variant`` (``"sparse"``, ``"resident"``,
     ``"streamed"``) forces a kernel, to hold them against each other.
-    Launches are counted in ``wave_cycle.launches`` under ``"shared"``
-    (layout (a)) or ``"grouped"`` (layouts (b) and (c)), with a
-    ``"sparse_"`` or ``"streamed_"`` prefix for those kernels.  A 3-D ``S``
-    with ``s_group_size`` is layout (b): the runs must be a multiple of
-    ``ROWS_PER_BLOCK`` rows.  A 3-D ``S`` without it holds one matrix per row
-    (layout (c)): each row is repeated ``ROWS_PER_BLOCK`` times, run as layout
-    (b) and read back once.  Anything else raises; nothing falls back.
+    A 3-D ``S`` with ``s_group_size`` is layout (b): the runs must be a
+    multiple of ``ROWS_PER_BLOCK`` rows.  A 3-D ``S`` without it holds one
+    matrix per row (layout (c)): the sparse kernel runs it in its per-row
+    instance, each row once; a dense kernel takes each row
+    ``ROWS_PER_BLOCK`` times in layout (b) and the result is read back once
+    (``cycle_route``).  Launches are counted in ``wave_cycle.launches``
+    under the route's key: ``"shared"`` (a), ``"grouped"`` (b, and (c) on a
+    dense kernel) with a ``"sparse_"`` or ``"streamed_"`` prefix for those
+    kernels, and ``"sparse_per_row"`` (c).  Anything else raises; nothing
+    falls back.
     """
     if F.device.type == "cpu":
         return wave_cycle_plain(params, F, G, wh_maxit, s_group_size)
     if F.device.type != "cuda":
         raise ValueError(f"wave_cycle: unsupported device {F.device}")
     S = params.S
-    if S.dim() == 3 and s_group_size is None:
-        r = ROWS_PER_BLOCK
+    ngroups = None if S.dim() == 2 else S.shape[0]
+    per_row = ngroups is not None and s_group_size is None
+    _check_operands(params, F, G)
+    ndom, pad = F.shape
+    dev = F.device.index
+    form = None
+    if variant in (None, "sparse"):
+        form = sparse_form(S) if sparse is None else sparse
+        _check_form(form, ngroups or 1, pad, F.device)
+    variant = kernel_variant(pad, _shared_memory_limit(dev),
+                             None if form is None else form.stride, variant, per_row)
+    route = cycle_route(variant, ndom, ngroups, s_group_size)
+    if route.tile > 1:
+        r = route.tile
         tiled = params._replace(
             Ha=params.Ha.repeat_interleave(r, dim=0),
             inv_mi=params.inv_mi.repeat_interleave(r, dim=0),
         )
-        u, v = wave_cycle(
-            tiled, F.repeat_interleave(r, dim=0), G.repeat_interleave(r, dim=0), wh_maxit, r,
-            variant=variant, sparse=sparse,
-        )
+        u, v = wave_cycle(tiled, F.repeat_interleave(r, dim=0), G.repeat_interleave(r, dim=0),
+                          wh_maxit, route.s_group_size, variant=variant)
         return u[::r], v[::r]
-    if S.dim() == 2:
-        if s_group_size is not None:
-            raise ValueError("wave_cycle: s_group_size needs a 3-D stiffness stack")
-        layout, gsize = "shared", 0
-    else:
-        _check_groups(S.shape[0], s_group_size, F.shape[0])
-        if s_group_size % ROWS_PER_BLOCK:
-            raise ValueError(
-                f"wave_cycle: s_group_size={s_group_size} must be a multiple of "
-                f"{ROWS_PER_BLOCK} (the rows of one block share one S)"
-            )
-        layout, gsize = "grouped", s_group_size
-    _check_operands(params, F, G)
-    ndom, pad = F.shape
-    dev = F.device.index
-    limit = _shared_memory_limit(dev)
-    form = None
-    if variant in (None, "sparse"):
-        form = sparse_form(S) if sparse is None else sparse
-        _check_form(form, 1 if S.dim() == 2 else S.shape[0], pad, F.device)
-    variant = kernel_variant(pad, limit, None if form is None else form.stride, variant)
     lib = _library(variant)
     u = torch.empty_like(F)
     v = torch.empty_like(F)
     rest = (
         F.data_ptr(), G.data_ptr(), params.Ha.data_ptr(), params.inv_mi.data_ptr(),
         params.tables.data_ptr(), u.data_ptr(), v.data_ptr(),
-        ndom, pad, params.tables.shape[0], wh_maxit, gsize, params.dt, params.K0, dev,
-        torch.cuda.current_stream(F.device).cuda_stream,
+        ndom, pad, params.tables.shape[0], wh_maxit,
     )
+    tail = (params.dt, params.K0, dev, torch.cuda.current_stream(F.device).cuda_stream)
     if variant == "sparse":
         head = (form.ptr.data_ptr(), form.idx.data_ptr(), form.val.data_ptr(),
                 form.order.data_ptr(), form.stride)
     else:
         head = (S.data_ptr(),)
-    err = getattr(lib, _ENTRY[variant] + "launch")(*head, *rest)
+    if route.key == "sparse_per_row":
+        err = lib.wave_cycle_sparse_per_row_launch(*head, *rest, *tail)
+    else:
+        err = getattr(lib, _ENTRY[variant] + "launch")(*head, *rest, route.s_group_size, *tail)
     if err:
         msg = getattr(lib, _ENTRY[variant] + "error_string")(err).decode()
         raise RuntimeError(f"wave_cycle: {variant} kernel launch failed: {msg}")
-    wave_cycle.launches[layout if variant == "resident" else f"{variant}_{layout}"] += 1
+    wave_cycle.launches[route.key] += 1
     return u, v
 
 
@@ -503,7 +547,17 @@ def reset_launches() -> None:
         wave_cycle.launches[key] = 0
 
 
+def sparse_blocks_per_sm(pad: int, stride: int, per_row: bool, device: torch.device) -> int:
+    """Blocks of the sparse kernel (its per-row instance with ``per_row``)
+    that fit on one SM of the CUDA ``device`` at this pad and stride."""
+    rows = 1 if per_row else SPARSE_ROWS_PER_BLOCK
+    blocks = _library("sparse").wave_cycle_sparse_blocks_per_sm(rows, pad, stride, device.index)
+    if blocks < 0:
+        raise RuntimeError(f"wave_cycle: cannot read the sparse kernel's occupancy on {device}")
+    return blocks
+
+
 wave_cycle.launches = {
     "shared": 0, "grouped": 0, "streamed_shared": 0, "streamed_grouped": 0,
-    "sparse_shared": 0, "sparse_grouped": 0,
+    "sparse_shared": 0, "sparse_grouped": 0, "sparse_per_row": 0,
 }

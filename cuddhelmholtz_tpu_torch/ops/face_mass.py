@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..spaces.h1 import FaceSpace
+from ..utils.device import check_device
 from ..utils.quadrature import QuadratureRule
 from .mass import assemble, assembly_table, gather
 
@@ -35,9 +36,11 @@ def make_face_mass_op(
     dtype=torch.float64,
     n_quad: int | None = None,
     *,
-    device="cpu",
+    device="cuda",
 ) -> FaceMassOp:
-    """``coeff`` is a face-space nodal vector (a on the face GLL nodes)."""
+    """``coeff`` is a face-space nodal vector (a on the face GLL nodes).
+    Built on ``device``: the card unless the caller asks for the CPU."""
+    device = check_device(device)
     nb = fs.h1.n_basis
     order = fs.h1.mesh.max_element_order
     if n_quad is None:
@@ -75,9 +78,10 @@ class DiagInvFaceMassOp(NamedTuple):
 
 
 def make_diag_inv_face_mass_op(
-    fs: FaceSpace, coeff: np.ndarray | None = None, dtype=torch.float64, *, device="cpu"
+    fs: FaceSpace, coeff: np.ndarray | None = None, dtype=torch.float64, *, device="cuda"
 ) -> DiagInvFaceMassOp:
     """Lumped inverse from the GLL collocation weights."""
+    device = check_device(device)
     quad = fs.h1.basis.quadrature
     m_f = fs.h1.mesh.edge_metrics(quad, fs.faces).measures * quad.w[None, :]  # (nf, nb)
     if coeff is not None:

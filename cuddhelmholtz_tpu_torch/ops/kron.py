@@ -22,6 +22,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.device import check_device
 from ..utils.quadrature import QuadratureRule
 from .mass import collocate_mass
 from .structured import GridH1Space
@@ -65,9 +66,10 @@ def _assemble_1d(nodes: np.ndarray, s: int, Khat: np.ndarray, Mhat: np.ndarray):
 
 
 def make_kron_stiffness_op(
-    space: GridH1Space, dtype=torch.float64, quad: QuadratureRule | None = None, *, device="cpu"
+    space: GridH1Space, dtype=torch.float64, quad: QuadratureRule | None = None, *, device="cuda"
 ) -> KronStiffnessOp:
     """1D-factorised equivalent of ``make_stiffness_op`` (same quadrature)."""
+    device = check_device(device)
     nb = space.n_basis
     if quad is None:
         quad = QuadratureRule(nb + space.mesh.max_element_order, QuadratureRule.GaussLegendre)
@@ -115,10 +117,11 @@ def make_kron_mass_op(
     dtype=torch.float64,
     n_quad: int | None = None,
     *,
-    device="cpu",
+    device="cuda",
 ) -> KronMassOp:
     """1D-factorised equivalent of ``make_mass_op``, on its collocated
     ``wdetj`` (the same data as the generic path)."""
+    device = check_device(device)
     _grid_1d(space)  # rectilinearity check
     nx, ny = space.grid
     s = space.n_basis - 1

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..spaces.h1 import H1Space
+from ..utils.device import check_device
 from ..utils.quadrature import QuadratureRule
 
 
@@ -131,10 +132,12 @@ def make_mass_op(
     dtype=torch.float64,
     n_quad: int | None = None,
     *,
-    device="cpu",
+    device="cuda",
 ) -> MassOp:
     """Mass-operator data for ``(a(x) u, v)`` on ``space`` (see
-    ``collocate_mass`` for the quadrature conventions)."""
+    ``collocate_mass`` for the quadrature conventions), on ``device`` (the
+    card unless the caller asks for the CPU)."""
+    device = check_device(device)
     P, wdetj = collocate_mass(space, coeff, n_quad)
     dofs, table = element_tables(space, device)
     return MassOp(
@@ -204,8 +207,9 @@ class DiagInvMassOp(NamedTuple):
 
 
 def make_diag_inv_mass_op(
-    space: H1Space, coeff: np.ndarray | None = None, dtype=torch.float64, *, device="cpu"
+    space: H1Space, coeff: np.ndarray | None = None, dtype=torch.float64, *, device="cuda"
 ) -> DiagInvMassOp:
+    device = check_device(device)
     return DiagInvMassOp(
         p=torch.as_tensor(1.0 / lumped_mass_diagonal(space, coeff), dtype=dtype, device=device))
 

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..spaces.h1 import H1Space
+from ..utils.device import check_device
 from ..utils.quadrature import QuadratureRule
 from .mass import element_tables, gather_elements, scatter_elements
 
@@ -54,8 +55,11 @@ def geometric_factors(space: H1Space, quad: QuadratureRule) -> tuple[np.ndarray,
 
 
 def make_stiffness_op(
-    space: H1Space, dtype=torch.float64, quad: QuadratureRule | None = None, *, device="cpu"
+    space: H1Space, dtype=torch.float64, quad: QuadratureRule | None = None, *, device="cuda"
 ) -> StiffnessOp:
+    """Stiffness-operator data for ``(grad u, grad v)`` on ``space``, on
+    ``device`` (the card unless the caller asks for the CPU)."""
+    device = check_device(device)
     if quad is None:
         quad = QuadratureRule(space.n_basis + space.mesh.max_element_order,
                               QuadratureRule.GaussLegendre)

@@ -61,6 +61,7 @@ from ..ops.mass import assembly_table, lumped_mass_diagonal
 from ..spaces.ensemble import EnsembleSpace, structured_labels
 from ..spaces.h1 import H1Space
 from ..utils.debug import check_finite, check_index_table
+from ..utils.device import check_device  # noqa: F401 (re-exported to the drivers)
 from .gmres import (
     BlockGmresResult,
     GmresResult,
@@ -204,18 +205,6 @@ def _stiffness_factor_basis(D: np.ndarray) -> np.ndarray:
     out = np.einsum("qk,gblq->gblk", D, fx) + np.einsum("ql,gbqk->gblk", D, fy)
     # rows = (l, k) test index, columns = b trial index
     return out.reshape(3 * nb2, nb2, nb2).transpose(0, 2, 1).reshape(3 * nb2, -1)
-
-
-def check_device(device) -> torch.device:
-    """The device an entry point runs on: the card unless the caller asks for
-    the CPU.  A CUDA device that is not there raises; nothing falls back."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device} requested but no CUDA device is available; "
-            "pass device='cpu' to run on the CPU"
-        )
-    return device
 
 
 def _sync(device: torch.device) -> None:
@@ -642,16 +631,20 @@ class DDH(nn.Module):
 
     def _cycle(self, params: DDHParams, F, G, wh_maxit: int):
         """The wave cycle on this operator's S; on the card with its sparse
-        form (the CPU runs the plain cycle, which does not read it).  F, G
-        hold the rows of K sources (K ndom rows); a per-domain S then runs
-        its form repeated K times."""
-        form = None
-        if F.is_cuda:
-            form = self.S_sparse
-            reps = F.shape[0] // self.n_domains
-            if params.S.dim() == 3 and reps > 1:
-                form = form.take(torch.arange(self.n_domains, device=F.device).repeat(reps))
+        form (the CPU runs the plain cycle, which does not read it)."""
+        form = self._cycle_form(params, F.shape[0]) if F.is_cuda else None
         return wave_cycle(params, F, G, wh_maxit, sparse=form)
+
+    def _cycle_form(self, params: DDHParams, rows: int) -> SparseS:
+        """The sparse form of ``params.S`` for a cycle of ``rows`` rows: K
+        sources of ndom rows each; a per-domain S (layout (c), one group
+        per row, no replicas) then runs its form repeated K times,
+        source-major as ``_rows`` repeats S."""
+        form = self.S_sparse
+        reps = rows // self.n_domains
+        if params.S.dim() == 3 and reps > 1:
+            form = form.take(torch.arange(self.n_domains, device=form.ptr.device).repeat(reps))
+        return form
 
     # ------------------------------------------------------ transfer / io
 

@@ -99,7 +99,7 @@ def _lumped_parts(mesh, fem, a_nodal):
     GLL-collocated stiffness, the lumped a^2 mass and the boundary face
     mass, as dense float64 arrays."""
     n = fem.ndof
-    stiff = make_stiffness_op(fem, quad=fem.basis.quadrature)
+    stiff = make_stiffness_op(fem, quad=fem.basis.quadrature, device="cpu")
     S = np.stack([apply_stiffness(stiff, torch.eye(n, dtype=torch.float64)[i]).numpy()
                   for i in range(n)], axis=1)
     fs = FaceSpace(fem, mesh.boundary_edges)

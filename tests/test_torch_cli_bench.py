@@ -118,7 +118,7 @@ def test_bench_headline_matches_a_direct_solve(monkeypatch):
 
     omega = 2 * np.pi * nx / 10
     fem = H1Space(Mesh2D.uniform_rect(nx, -1.0, 1.0, nx, -1.0, 1.0), Basis(4))
-    a = apply_diag_inv_mass(make_diag_inv_mass_op(fem, dtype=torch.float32),
+    a = apply_diag_inv_mass(make_diag_inv_mass_op(fem, dtype=torch.float32, device="cpu"),
                             linear_functional(fem, wave_speed_coeff, dtype=torch.float32))
     ddh = DDH(omega, a.numpy().astype(np.float64), fem, nx=nx, ny=nx, device="cpu")
     ddh.prepare(want_io=False)

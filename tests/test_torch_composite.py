@@ -61,7 +61,7 @@ def direct_solution():
     fs = FaceSpace(fem, mesh.boundary_edges)
     omega = 2 * np.pi * NX / 10
     a2, af = project_coefficients(fem, fs, wave_speed_coeff)
-    op = make_helmholtz_op(omega, a2, af, fem, fs)
+    op = make_helmholtz_op(omega, a2, af, fem, fs, device="cpu")
     n2 = 2 * fem.ndof
     eye = torch.eye(n2, dtype=torch.float64)
     A = torch.stack([apply_helmholtz(op, eye[i]) for i in range(n2)], dim=1).numpy()

@@ -106,16 +106,17 @@ def test_coeff_update_matches_host_collocation():
     jfem, jfs, fem, fs = _spaces(4, 2)
     a = 1.0 + 0.3 * np.random.default_rng(3).standard_normal(fem.ndof)
     nq = variable_coeff_n_quad(fem)
-    upd = mass_op_with_coeff(make_mass_op(fem, n_quad=nq), torch.from_numpy(a))
-    ref = make_mass_op(fem, coeff=a)
+    upd = mass_op_with_coeff(make_mass_op(fem, n_quad=nq, device="cpu"), torch.from_numpy(a))
+    ref = make_mass_op(fem, coeff=a, device="cpu")
     np.testing.assert_allclose(upd.wdetj.numpy(), ref.wdetj.numpy(), rtol=1e-14)
     jupd = jmass.mass_op_with_coeff(jmass.make_mass_op(jfem, n_quad=nq), jnp.asarray(a))
     np.testing.assert_allclose(upd.wdetj.numpy(), np.asarray(jupd.wdetj), rtol=1e-14)
 
     af = a[fs.proj]
-    fupd = face_mass_op_with_coeff(make_face_mass_op(fs, n_quad=nq), torch.from_numpy(af))
-    np.testing.assert_allclose(fupd.wds.numpy(), make_face_mass_op(fs, coeff=af).wds.numpy(),
-                               rtol=1e-14)
+    fupd = face_mass_op_with_coeff(make_face_mass_op(fs, n_quad=nq, device="cpu"),
+                                  torch.from_numpy(af))
+    fref = make_face_mass_op(fs, coeff=af, device="cpu")
+    np.testing.assert_allclose(fupd.wds.numpy(), fref.wds.numpy(), rtol=1e-14)
     jfupd = jfm.face_mass_op_with_coeff(jfm.make_face_mass_op(jfs, n_quad=nq), jnp.asarray(af))
     np.testing.assert_allclose(fupd.wds.numpy(), np.asarray(jfupd.wds), rtol=1e-14)
 
@@ -125,7 +126,7 @@ def test_helmholtz_op_with_coeff_matches_make():
     rng = np.random.default_rng(4)
     a = 1.0 + 0.2 * rng.standard_normal(fem.ndof)
     omega = 3.1
-    tmpl = make_helmholtz_template(fem, fs)
+    tmpl = make_helmholtz_template(fem, fs, device="cpu")
     # the JAX template carried over holds the port's own data
     jt = jhelm.make_helmholtz_template(jfem, jfs)
     carried = helmholtz_template_from_jax(_tmpl_arrays(jt), "cpu")
@@ -138,7 +139,7 @@ def test_helmholtz_op_with_coeff_matches_make():
                 assert x == y
     op_t = helmholtz_op_with_coeff(tmpl, omega, torch.from_numpy(a * a),
                                    torch.from_numpy(a[fs.proj]))
-    op_r = make_helmholtz_op(omega, a * a, a[fs.proj], fem, fs, kron=False)
+    op_r = make_helmholtz_op(omega, a * a, a[fs.proj], fem, fs, kron=False, device="cpu")
     U = torch.from_numpy(rng.standard_normal(2 * fem.ndof))
     np.testing.assert_allclose(apply_helmholtz(op_t, U).numpy(), apply_helmholtz(op_r, U).numpy(),
                                rtol=1e-12, atol=1e-12)
@@ -321,7 +322,7 @@ def test_ddh_solve_hook_matches_default_path_and_jax():
     U_ref, g_ref = u_and_grad(None, tol=1e-11, m=1300, maxit=2)
     obs = 0.9 * U_ref
 
-    a_frozen = apply_diag_inv_mass(make_diag_inv_mass_op(fem),
+    a_frozen = apply_diag_inv_mass(make_diag_inv_mass_op(fem, device="cpu"),
                                    linear_functional(fem, lambda xy: 1.05 + 0 * xy[..., 0])).numpy()
     ddh = DDH(omega, a_frozen, fem, nx=nx, ny=nx, wh_maxit=wh_maxit, device="cpu")
     ddh.prepare(want_io=True)

@@ -86,7 +86,8 @@ def _rel_max(a, b) -> float:
 def _medium(fem, omega):
     """a(x) interpolated at the nodes and the two-source forcing, as
     ``run_ddh`` builds them (host float64)."""
-    a_nodal = apply_diag_inv_mass(make_diag_inv_mass_op(fem), linear_functional(fem, wave_speed_coeff))
+    a_nodal = apply_diag_inv_mass(make_diag_inv_mass_op(fem, device="cpu"),
+                                  linear_functional(fem, wave_speed_coeff))
     b = helmholtz_rhs(fem, lambda xy: point_sources(xy, omega))
     return a_nodal.numpy(), b
 

@@ -39,8 +39,10 @@ from cuddhelmholtz_tpu_torch.models.helmholtz import (
     apply_helmholtz,
     helmholtz_op_from_jax,
     make_helmholtz_op,
+    make_helmholtz_template,
     project_coefficients,
 )
+from cuddhelmholtz_tpu_torch.models.poisson import make_poisson_op
 from cuddhelmholtz_tpu_torch.ops import face_mass as fm
 from cuddhelmholtz_tpu_torch.ops import functional as fun
 from cuddhelmholtz_tpu_torch.ops import kron
@@ -57,6 +59,7 @@ torch.set_num_threads(1)
 DEG = 3
 TABLE_TOL, APPLY_TOL, PROJ_TOL = 1e-14, 1e-12, 1e-10
 SPACES = ("rect", "square", "grid")
+CPU = "cpu"  # the operator builders default to the card
 
 
 def _close(got, want, tol):
@@ -128,23 +131,25 @@ def test_spaces_and_mesh_queries_match_jax(spaces):
 
 def test_operator_tables_match_jax(spaces):
     kind, jsp, jfs, sp, fs, a2, af = spaces
-    so, jso = stiff.make_stiffness_op(sp), jstiff.make_stiffness_op(jsp)
+    so, jso = stiff.make_stiffness_op(sp, device=CPU), jstiff.make_stiffness_op(jsp)
     for name in ("P", "D", "A", "B", "C"):
         _close(getattr(so, name), getattr(jso, name), TABLE_TOL)
     assert np.array_equal(so.dofs.numpy(), np.asarray(jso.dofs))
     for coeff, nq in ((None, None), (a2, None), (None, mass.variable_coeff_n_quad(sp))):
-        mo, jmo = mass.make_mass_op(sp, coeff, n_quad=nq), jmass.make_mass_op(jsp, coeff, n_quad=nq)
+        mo = mass.make_mass_op(sp, coeff, n_quad=nq, device=CPU)
+        jmo = jmass.make_mass_op(jsp, coeff, n_quad=nq)
         _close(mo.P, jmo.P, TABLE_TOL)
         _close(mo.wdetj, jmo.wdetj, TABLE_TOL)
     assert mass.variable_coeff_n_quad(sp) == jmass.variable_coeff_n_quad(jsp)
     for coeff in (None, af):
-        fo, jfo = fm.make_face_mass_op(fs, coeff), jfm.make_face_mass_op(jfs, coeff)
+        fo, jfo = fm.make_face_mass_op(fs, coeff, device=CPU), jfm.make_face_mass_op(jfs, coeff)
         _close(fo.P, jfo.P, TABLE_TOL)
         _close(fo.wds, jfo.wds, TABLE_TOL)
         assert np.array_equal(fo.fdofs.numpy(), np.asarray(jfo.fdofs))
-        _close(fm.make_diag_inv_face_mass_op(fs, coeff).p,
+        _close(fm.make_diag_inv_face_mass_op(fs, coeff, device=CPU).p,
                jfm.make_diag_inv_face_mass_op(jfs, coeff).p, TABLE_TOL)
-    _close(mass.make_diag_inv_mass_op(sp, a2).p, jmass.make_diag_inv_mass_op(jsp, a2).p, TABLE_TOL)
+    _close(mass.make_diag_inv_mass_op(sp, a2, device=CPU).p,
+           jmass.make_diag_inv_mass_op(jsp, a2).p, TABLE_TOL)
 
 
 def test_assembly_table_sums_like_segment_sum():
@@ -178,11 +183,11 @@ def test_generic_applies_match_jax(spaces):
     x = rng.standard_normal(sp.ndof)
     xf = rng.standard_normal(fs.fdof)
     xt, jx = torch.from_numpy(x), jnp.asarray(x)
-    _close(stiff.apply_stiffness(stiff.make_stiffness_op(sp), xt),
+    _close(stiff.apply_stiffness(stiff.make_stiffness_op(sp, device=CPU), xt),
            jstiff.apply_stiffness(jstiff.make_stiffness_op(jsp), jx), APPLY_TOL)
-    _close(mass.apply_mass(mass.make_mass_op(sp, a2), xt),
+    _close(mass.apply_mass(mass.make_mass_op(sp, a2, device=CPU), xt),
            jmass.apply_mass(jmass.make_mass_op(jsp, a2), jx), APPLY_TOL)
-    _close(fm.apply_face_mass(fm.make_face_mass_op(fs, af), torch.from_numpy(xf)),
+    _close(fm.apply_face_mass(fm.make_face_mass_op(fs, af, device=CPU), torch.from_numpy(xf)),
            jfm.apply_face_mass(jfm.make_face_mass_op(jfs, af), jnp.asarray(xf)), APPLY_TOL)
 
 
@@ -197,9 +202,10 @@ def test_structured_and_kron_applies_match_jax():
     _close(xe, xt[torch.as_tensor(sp.dofs, dtype=torch.int64)], 0.0)
     _close(struct.grid_scatter(xe, nx, ny, nb), jstruct.grid_scatter(jnp.asarray(xe.numpy()),
                                                                       nx, ny, nb), APPLY_TOL)
-    so, mo = stiff.make_stiffness_op(sp), mass.make_mass_op(sp, a2)
+    so, mo = stiff.make_stiffness_op(sp, device=CPU), mass.make_mass_op(sp, a2, device=CPU)
     jso, jmo = jstiff.make_stiffness_op(jsp), jmass.make_mass_op(jsp, a2)
-    ks, km = kron.make_kron_stiffness_op(sp), kron.make_kron_mass_op(sp, a2)
+    ks = kron.make_kron_stiffness_op(sp, device=CPU)
+    km = kron.make_kron_mass_op(sp, a2, device=CPU)
     jks, jkm = jkron.make_kron_stiffness_op(jsp), jkron.make_kron_mass_op(jsp, a2)
     for name in ks._fields:
         _close(getattr(ks, name), getattr(jks, name), TABLE_TOL)
@@ -243,7 +249,7 @@ def test_apply_helmholtz_matches_jax(path):
     _, jsp, jfs, sp, fs, a2, af = _grid_case()
     omega = 2 * np.pi * 0.8
     use_kron = path == "kron"
-    op = make_helmholtz_op(omega, a2, af, sp, fs, kron=use_kron)
+    op = make_helmholtz_op(omega, a2, af, sp, fs, kron=use_kron, device=CPU)
     jop = jhelm.make_helmholtz_op(omega, a2, af, jsp, jfs, kron=use_kron)
     grid = sp.grid if path == "structured" else None
     U = np.random.default_rng(2).standard_normal(2 * sp.ndof)
@@ -272,7 +278,7 @@ def test_helmholtz_op_from_jax(use_kron):
     _close(apply_helmholtz(op, torch.from_numpy(U)),
            jhelm.apply_helmholtz(jop, jnp.asarray(U), kron_precision="highest"), APPLY_TOL)
     # and the port's own make_helmholtz_op makes the same data
-    own = make_helmholtz_op(3.0, a2, af, sp, fs, kron=use_kron)
+    own = make_helmholtz_op(3.0, a2, af, sp, fs, kron=use_kron, device=CPU)
     _close(apply_helmholtz(own, torch.from_numpy(U)), apply_helmholtz(op, torch.from_numpy(U)),
            APPLY_TOL)
 
@@ -303,7 +309,7 @@ def test_permuted_kron_matvec32_matches_generic():
     fs = FaceSpace(fem, mesh.boundary_edges)
     a2, af = project_coefficients(fem, fs, wave_speed_coeff)
     op = make_helmholtz_op(omega, a2.astype(np.float32), af.astype(np.float32), fem, fs,
-                           dtype=torch.float32)
+                           dtype=torch.float32, device=CPU)
     mv_fast = _make_matvec32(omega, a2, af, fem, fs, mesh, nx, device="cpu")
     U = torch.from_numpy(np.random.default_rng(0).standard_normal(2 * fem.ndof).astype(np.float32))
     y0 = apply_helmholtz(op, U).numpy()
@@ -336,3 +342,44 @@ def test_ddh_on_grid_space_matches_jax(nx):
     ju, jg, jnu = jddh._domain_groups()
     u, g, nu = ddh._domain_groups()
     assert nu == jnu and np.array_equal(g, np.asarray(jg)) and np.array_equal(u, np.asarray(ju))
+
+
+# the public operator builders, each called on the grid case with **kw
+BUILDERS = {
+    "make_stiffness_op": lambda sp, fs, a2, af, **kw: stiff.make_stiffness_op(sp, **kw),
+    "make_mass_op": lambda sp, fs, a2, af, **kw: mass.make_mass_op(sp, a2, **kw),
+    "make_diag_inv_mass_op": lambda sp, fs, a2, af, **kw: mass.make_diag_inv_mass_op(sp, **kw),
+    "make_kron_stiffness_op": lambda sp, fs, a2, af, **kw: kron.make_kron_stiffness_op(sp, **kw),
+    "make_kron_mass_op": lambda sp, fs, a2, af, **kw: kron.make_kron_mass_op(sp, a2, **kw),
+    "make_face_mass_op": lambda sp, fs, a2, af, **kw: fm.make_face_mass_op(fs, af, **kw),
+    "make_diag_inv_face_mass_op":
+        lambda sp, fs, a2, af, **kw: fm.make_diag_inv_face_mass_op(fs, **kw),
+    "make_helmholtz_op":
+        lambda sp, fs, a2, af, **kw: make_helmholtz_op(3.0, a2, af, sp, fs, **kw),
+    "make_helmholtz_template":
+        lambda sp, fs, a2, af, **kw: make_helmholtz_template(sp, fs, **kw),
+    "make_poisson_op": lambda sp, fs, a2, af, **kw: make_poisson_op(sp, fs, **kw),
+}
+
+
+def _tensors(op):
+    """Every tensor of a builder's (nested) NamedTuple."""
+    for x in op:
+        if isinstance(x, torch.Tensor):
+            yield x
+        elif isinstance(x, tuple):
+            yield from _tensors(x)
+
+
+@pytest.mark.parametrize("name", sorted(BUILDERS))
+def test_builder_defaults_to_the_card(name, monkeypatch):
+    """Without ``device`` a builder runs on the card, so without one it
+    raises (naming ``device='cpu'``) and falls back to nothing; with
+    ``device="cpu"`` it builds on the CPU."""
+    _, _, _, sp, fs, a2, af = _grid_case()
+    build = BUILDERS[name]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build(sp, fs, a2, af)
+    tensors = list(_tensors(build(sp, fs, a2, af, device=CPU)))
+    assert tensors and all(t.device.type == "cpu" for t in tensors)

@@ -56,15 +56,16 @@ def space(nx, nb):
 def operators(inp, mesh, out):
     """Element-sharded stiffness, mass and coupled Helmholtz matvecs (fp64)."""
     _, fem = space(10, 5)
-    op = make_stiffness_op(fem)
+    op = make_stiffness_op(fem, device="cpu")
     out["stiffness"] = sharded_stiffness_apply(op, mesh)(shard_stiffness_op(op, mesh),
                                                          t(inp["x_stiff"])).numpy()
     _, fem = space(10, 4)
-    op = make_mass_op(fem, coeff=inp["a_mass"])
+    op = make_mass_op(fem, coeff=inp["a_mass"], device="cpu")
     out["mass"] = sharded_mass_apply(op, mesh)(shard_mass_op(op, mesh), t(inp["x_mass"])).numpy()
     m8, fem = space(8, 4)
     fs = FaceSpace(fem, m8.boundary_edges)
-    hop = make_helmholtz_op(float(inp["omega_h"]), inp["a2"], inp["af"], fem, fs, kron=False)
+    hop = make_helmholtz_op(float(inp["omega_h"]), inp["a2"], inp["af"], fem, fs, kron=False,
+                          device="cpu")
     matvec = sharded_helmholtz_matvec(hop, mesh)
     out["helmholtz"] = matvec(t(inp["U"])).numpy()
 

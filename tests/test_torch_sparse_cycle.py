@@ -5,7 +5,8 @@ the sparse kernel (``csrc/wave_cycle_sparse.cu``) reads that form from shared
 memory and is the default on the card.  On the CPU these tests hold the form
 (densified, it gives S back bitwise; padded columns are empty; the pinned
 non-zero counts), the plain cycle through it (float64, to 1e-12 of the dense
-plain cycle, whose sums it only reorders) and the dispatch rule.  The JAX
+plain cycle, whose sums it only reorders), the dispatch rule and the route
+of each layout (``cycle_route``: a per-row stack runs each row once).  The JAX
 comparisons of the plain sparse cycle are in ``test_torch_wave_cycle.py``
 (layouts (a), (c)) and ``test_torch_large_pad.py`` (pad 632).
 
@@ -16,7 +17,7 @@ blocks: 2,281 at nx = 32 and 64, 1,993 at the flagship's nx = 128; 32-DOF
 blocks: 8,881 at nx = 64, 9,841 at ``ddh_512_block32``'s nx = 512).
 
 The tests marked ``cuda`` hold the sparse kernel to the plain cycle in
-layouts (a), (b) and (c) at pad 176 and 632, and to each dense kernel forced
+layouts (a), (b) and (c) (its per-row instance) at pad 176 and 632, and to each dense kernel forced
 on the same rows (tolerance 2e-4 relative to the max, as
 ``test_torch_wave_cycle.py``); they skip where there is no GPU.  On a
 machine without JAX run
@@ -31,7 +32,7 @@ from cuddhelmholtz_tpu_torch.config import DDH_UNSTRUCTURED_SQUARE as UCFG
 from cuddhelmholtz_tpu_torch.mesh.io import load_unstructured_square
 from cuddhelmholtz_tpu_torch.mesh.mesh2d import Mesh2D
 from cuddhelmholtz_tpu_torch.ops.cuda import wave_cycle as wc
-from cuddhelmholtz_tpu_torch.solvers.ddh import DDH
+from cuddhelmholtz_tpu_torch.solvers.ddh import DDH, _rows
 from cuddhelmholtz_tpu_torch.spaces.ensemble import coordinate_bisection_labels
 from cuddhelmholtz_tpu_torch.spaces.h1 import H1Space
 from cuddhelmholtz_tpu_torch.utils.basis import Basis
@@ -184,6 +185,57 @@ def test_dispatch_picks_sparse_at_every_configuration(config):
             wc.kernel_variant(pad, LIMIT, nnz, variant="resident")
 
 
+@pytest.mark.parametrize("config", sorted(CONFIG_SHAPES))
+def test_per_row_instance_needs_less_shared_memory(config):
+    """The per-row instance holds one row's [p ; p_half] buffers (16 pad
+    bytes) beside the staged S, where a block of SPARSE_ROWS_PER_BLOCK
+    rows holds 64 pad; the dispatch asks for the per-row bytes."""
+    pad, stride = CONFIG_SHAPES[config]
+    one = wc.sparse_shared_memory_bytes(pad, stride, rows=1)
+    assert one == 16 * pad + 6 * stride
+    assert wc.sparse_shared_memory_bytes(pad, stride) - one == 48 * pad
+    assert wc.kernel_variant(pad, one, stride, per_row=True) == "sparse"
+    with pytest.raises(ValueError, match="no kernel sparse"):
+        wc.kernel_variant(pad, one, stride, variant="sparse")  # 4 rows do not fit there
+
+
+@pytest.mark.parametrize("variant", wc.VARIANTS)
+def test_route_of_each_layout(variant):
+    """(a) and (b) run the caller's rows; (c) runs each row once in the
+    sparse kernel's per-row instance, and ROWS_PER_BLOCK times in layout
+    (b) on a dense kernel, whose blocks need runs of that many rows."""
+    prefix = {"sparse": "sparse_", "resident": "", "streamed": "streamed_"}[variant]
+    assert wc.cycle_route(variant, 1024, None) == wc.Route(prefix + "shared", 1024, 1, 1, 0)
+    assert wc.cycle_route(variant, 960, 8, 120) == wc.Route(prefix + "grouped", 960, 8, 1, 120)
+    r = wc.ROWS_PER_BLOCK
+    want = (wc.Route("sparse_per_row", 1024, 1024, 1, 1) if variant == "sparse"
+            else wc.Route(prefix + "grouped", r * 1024, 1024, r, r))
+    assert wc.cycle_route(variant, 1024, 1024) == want
+    with pytest.raises(ValueError, match="per-row stack of 8 matrices for 16 rows"):
+        wc.cycle_route(variant, 16, 8)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        wc.cycle_route(variant, 36, 3, 12)
+    with pytest.raises(ValueError, match="s_group_size"):
+        wc.cycle_route(variant, 16, None, 8)
+
+
+@pytest.mark.parametrize("K", [1, 3])
+def test_per_row_cycle_of_k_sources_runs_each_row_once(K):
+    """The DDH's cycle on K sources with a per-domain S (rhs, postprocess
+    and the direct matvec of an unstructured mesh): K ndom rows, the form
+    repeated K times source-major, one group per row, no replicas."""
+    ddh = _unstructured("cpu")
+    nd = ddh.n_domains
+    p = _rows(ddh.params, K)
+    form = ddh._cycle_form(p, K * nd)
+    assert p.S.shape[0] == form.ptr.shape[0] == K * nd
+    for name in wc.SparseS._fields:
+        assert torch.equal(getattr(form, name), getattr(ddh.S_sparse, name).repeat(K, 1)), name
+    variant = wc.kernel_variant(ddh.pad, LIMIT, form.stride, per_row=True)
+    route = wc.cycle_route(variant, K * nd, p.S.shape[0])
+    assert route == wc.Route("sparse_per_row", K * nd, K * nd, 1, 1)
+
+
 @pytest.mark.parametrize("pad,nnz,want", [
     (216, 216 * 216, "resident"),  # a dense S's form exceeds shared memory
     (632, 632 * 60, "streamed"),
@@ -281,11 +333,12 @@ def test_sparse_grouped_matches_plain_and_dense(cuda, pad, c):
 @pytest.mark.cuda
 @pytest.mark.parametrize("pad", [176, 632])
 def test_sparse_per_row_matches_plain(cuda, pad):
-    """Layout (c): one S per row, each row tiled x8 onto layout (b)."""
+    """Layout (c): one S per row, in the sparse kernel's per-row instance
+    (one launch over the ndom rows, no replicas), against the plain cycle."""
     ddh = _structured(cuda, *STRUCTURED[pad])
     p = ddh.params
     pp = p._replace(S=_stack(p.S, ddh.n_domains))
     rng = np.random.default_rng(8)
     F, G = _masked(rng, ddh.gmask), _masked(rng, ddh.gmask)
-    u, v = _run(pp, F, G, "sparse_grouped", ddh.gmask)
+    u, v = _run(pp, F, G, "sparse_per_row", ddh.gmask)
     _close(u, v, *wc.wave_cycle_plain(pp, F, G, 1))

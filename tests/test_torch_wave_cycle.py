@@ -282,7 +282,8 @@ def test_kernel_matches_plain(cuda):
 
 @pytest.mark.cuda
 def test_kernel_per_row_stiffness_matches_plain(cuda):
-    """Layout (c): one S per row, each row tiled x8 onto layout (b)."""
+    """Layout (c): one S per row, in one launch of the sparse kernel's
+    per-row instance over the ndom rows (no replicas)."""
     ddh = _port_ddh(cuda, jitter=True, nt_override=60)
     assert ddh.params.S.dim() == 3 and ddh.params.S.shape[0] == ddh.n_domains
     F, G = _forcing(ddh.gmask.cpu().numpy(), seed=7)
@@ -290,7 +291,7 @@ def test_kernel_per_row_stiffness_matches_plain(cuda):
     before = dict(wc.wave_cycle.launches)
     u, v = wc.wave_cycle(ddh.params, Ft, Gt)
     torch.cuda.synchronize()
-    assert wc.wave_cycle.launches == {**before, "sparse_grouped": before["sparse_grouped"] + 1}
+    assert wc.wave_cycle.launches == {**before, "sparse_per_row": before["sparse_per_row"] + 1}
     u0, v0 = wc.wave_cycle_plain(ddh.params, Ft, Gt)
     assert _rel_max(u.cpu(), u0.cpu()) < TOL and _rel_max(v.cpu(), v0.cpu()) < TOL
     pad_mask = ddh.gmask == 0
