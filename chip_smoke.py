@@ -4,23 +4,27 @@
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It imports nothing of JAX.  Phases, each raising on failure:
 
-1. The card: ``nvidia-smi`` name and power limit; build the three WaveHoltz
+1. The card: ``nvidia-smi`` name and power limit; build the four WaveHoltz
    kernels from ``cuddhelmholtz_tpu_torch/csrc/`` with one nvcc each,
    started together (timed).
 2. Kernels vs plain at the flagship shape: one wave cycle of the
    ``ddh_structured`` DDH (1,024 subdomains, pad 176, nt 800) on masked random
-   (F, G) through the sparse kernel (the default), the resident and the
-   streamed kernels (forced) and the plain PyTorch cycle.  Times each kernel
-   in turns (sparse, dense, dense, sparse) with CUDA events, the plain cycle
-   once, and the build of the sparse form.
+   (F, G) through the tensor-core kernel, the sparse (FFMA) kernel, the
+   resident kernel and the plain PyTorch cycle.  Times each kernel in turns
+   (mma, sparse, resident, resident, sparse, mma) with CUDA events, the
+   plain cycle once, and the builds of the sparse and tile forms; then the
+   tensor-core and sparse kernels on the flagship's S at 384 rows (the FWI
+   transfer-probe shape, fewer blocks than SMs).
 3. The flagship solve ``run_ddh(nx=128, deg=3)`` on the direct path: it must
-   succeed in <= 20 restarts, the sparse kernel must have launched exactly
-   ``num_matvec + 2`` times (every matvec, rhs and postprocess) and no dense
+   succeed in <= 20 restarts, the default kernel (``_k1``: the tensor-core
+   one wherever its tile form fits) must have launched exactly
+   ``num_matvec + 2`` times (every matvec, rhs and postprocess) and no other
    one, and the lambda residual recomputed with the plain cycle must be
    <= 1.2e-4.
-4. The grouped-S layout (b), sparse against the plain cycle and the
-   resident kernel, at the ``ddh_unstructured_square`` transfer-probe shape
-   (S (8, 168, 168), 960 rows in runs of 120, nt 1,717), and the per-row
+4. The grouped-S layout (b), tensor-core and sparse against the plain cycle
+   and the resident kernel, at the ``ddh_unstructured_square`` transfer-probe shape
+   (S (8, 168, 168), 960 rows in runs of 120, nt 1,717) and, tensor-core
+   and sparse, at its io-probe shape (3,648 rows in runs of 456), and the per-row
    layout (c) at that DDH's own shape: the sparse kernel's per-row instance
    (each row once) against the plain cycle, the resident kernel (rows tiled
    x8) and the sparse kernel on the rows tiled x8 onto (b), the route of the
@@ -33,29 +37,30 @@ It imports nothing of JAX.  Phases, each raising on failure:
    restarts, matvecs within one restart of the JAX run's 366, plain-cycle
    lambda residual <= 1.2e-4.
 6. ``run_config(ddh_unstructured_square)`` at full size: its probes run the
-   sparse kernel in layout (b), the solve none; <= 100 restarts, matvecs
+   default kernel in layout (b), the solve none; <= 100 restarts, matvecs
    within two restarts of the JAX run's 668, plain-cycle residual <= 1.2e-4.
 7. ``run_config(ddh_512_block32)`` (nx 512, 4,096 subdomains of 625 DOFs,
    pad 632) on the transfer path: its probes run the sparse kernel in
-   layout (a) (the dense S is 1.6 MB, its non-zeros 59 KB); restarts within
+   layout (a) (the dense S is 1.6 MB, its non-zeros 59 KB; its 8 x 8 tiles
+   do not fit beside the rows, so not the tensor-core one); restarts within
    one of the JAX run's 25, matvecs within one restart of 522, no kernel in
    a repeated solve, plain-cycle residual <= 1.2e-4.
 8. Sparse and streamed layout (a) against the plain cycle on that DDH's
    transfer-probe rows (65 unique subdomains x 192 columns, pad 632, nt 800).
 9. ``large_unstructured`` at ``--levels 3 --domains 256`` (7,616 elements,
-   pad 320, one S per domain): probes run the sparse kernel in layout (b);
+   pad 320, one S per domain): probes run the default kernel in layout (b);
    restarts within one of the JAX run's 18, matvecs within one restart of
    373, the checks of phase 7.
-10. Sparse and streamed layout (b) against the plain cycle on that DDH's
+10. Tensor-core, sparse and streamed layout (b) against the plain cycle on that DDH's
    transfer-probe rows (256 runs of 192 rows, pad 320, nt 1,283).
 11. The streamed kernel forced at the flagship shape (pad 176) against the
-   resident and sparse kernels of phase 2.
+   tensor-core, resident and sparse kernels of phase 2.
 12. ``run_config(helmholtz_ddh_1e6)`` at full size (nx 128, the coupled
    system to 1e-6: fp64 refinement of fp32 FGMRES(20), one bounded DDH
    solve as right preconditioner P): success, <= 12 outer restarts (JAX on
    the TPU: 10), <= 6 refinement steps, not stagnated, and a true relative
    residual <= 1e-6 recomputed with the generic (non-kron) fp64 operator on
-   the same data; the sparse kernel runs in ``prepare`` only (P launches
+   the same data; the default kernel runs in ``prepare`` only (P launches
    none) and no dense kernel runs; P repeats bitwise on the same input and
    the first and the warm run take the same counts.  Prints solve, warm and
    prepare seconds and ms per P.
@@ -77,8 +82,8 @@ It imports nothing of JAX.  Phases, each raising on failure:
 17. ``run_config(ddh_high_frequency)`` at full size (nx 256, 4,096
    subdomains) on the transfer path: the probes launch only the sparse
    kernel in layout (a), a repeated solve none; <= 21 restarts (JAX on the
-   TPU: 19 / 389), plain-cycle residual <= 1.2e-4; then the sparse kernel
-   against the plain cycle on its transfer-probe rows.
+   TPU: 19 / 389), plain-cycle residual <= 1.2e-4; then the tensor-core and
+   sparse kernels against the plain cycle on its transfer-probe rows.
 18. ``run_config(ddh_multi_source_8)`` at full size (block GMRES(40), 8 ring
    sources, transfer path): success, restarts within one of JAX's 7, each
    source 1 + 41 restarts matvecs, every source's plain-cycle residual <=
@@ -88,7 +93,7 @@ It imports nothing of JAX.  Phases, each raising on failure:
    matched-mode baseline: 8 warm single-source solves of the same sources
    with the block solve's GMRES options.
 19. The direct multi-source path at nx 64 with 4 sources: ``method="block"``
-   launches the sparse kernel exactly (block matvecs + 2) times, each over
+   launches the default kernel exactly (block matvecs + 2) times, each over
    the 4 x 256 rows, in no more restarts than the slowest lock-step lane;
    ``method="vmap"`` gives each source the restarts and matvecs of a solo
    direct solve of it; then one 1,024-row launch against the plain cycle.
@@ -100,7 +105,7 @@ It imports nothing of JAX.  Phases, each raising on failure:
 Phases 1-20 run with the DDH setup cache off (CUDDH_CACHE_DIR=""), their
 subprocesses too.
 21. The setup cache in a fresh temporary directory: the flagship transfer
-   ``run_ddh`` twice, a miss that launches the sparse kernel twice (the
+   ``run_ddh`` twice, a miss that launches the default kernel twice (the
    transfer and io probes, as phase 5) and a hit that launches none, with
    bitwise the same T, io maps, counts, history and solution; then
    ``run_config(ddh_512_block32)`` cold and warm, prepare seconds against
@@ -113,9 +118,10 @@ subprocesses too.
    two-level multiplicative on the iterative coarse space (4 directions, one
    subdomain per superdomain, coarse solve (20, 2, 3e-2): nc 294,912),
    <= 23 restarts (JAX: 21 / 438); each succeeds with a plain-cycle
-   residual <= 1.2e-4, launches the sparse kernel in layout (a) only in
+   residual <= 1.2e-4, launches the default kernel in layout (a) only in
    ``prepare``, and a repeated solve launches none and repeats bitwise.
-   Then the sparse kernel against the plain cycle on its probe rows.
+   Then the tensor-core and sparse kernels against the plain cycle on its
+   probe rows.
 24. ``large_unstructured --levels 3 --domains 256 --coarse multiplicative``
    through ``run_case``: success in <= 21 restarts (phase 9's JAX 18 + 3),
    only the sparse grouped kernel launched.
@@ -131,8 +137,8 @@ subprocesses too.
    at the true model; the hook frozen at a0 stalls on that operator, which
    is recorded at maxit 10.  Each checked solve succeeds with a true fp64
    relative residual <= 1e-8 recomputed with the template's operator; K1
-   launches four times, the probes of the two ``prepare``s (sparse layout
-   (a)), and never in a solve.
+   launches four times, the probes of the two ``prepare``s (the default
+   kernel in layout (a)), and never in a solve.
 26. The host-loop solvers at nx 128 (``_host_loop_run``):
    ``run_helmholtz(maxit=10, max_seconds=3600, verbose=2)`` gives phase 14's
    9 / 1,810 and history bitwise with 10 restart times;
@@ -148,11 +154,12 @@ subprocesses too.
    ``H1Space`` timed with the native topology and with ``CUDDH_NATIVE=0``
    (the same tables); its io maps exceed the 1 GiB cap, so the solve runs
    rhs and postprocess as wave cycles: restarts within one of JAX's 18 and
-   <= 20, sparse launches only (grouped for the probes, 2 per-row for rhs
-   and postprocess), a repeated solve launches exactly 2 per-row and
+   <= 20, the default kernel grouped for the probes and 2 sparse per-row
+   launches for rhs and postprocess, a repeated solve launches exactly 2 per-row and
    repeats bitwise, plain-cycle residual <= 1.2e-4, peak memory; then the
    kernel against the plain cycle in layout (c) (the rhs's 1,024 rows, per
-   row and tiled x8 as in phase 4) and layout (b) (64 probe runs).  Then
+   row and tiled x8 as in phase 4) and layout (b) (64 probe runs, the
+   tensor-core and sparse kernels).  Then
    the L3 ``--control`` case (a jittered 87x87 grid, 256 domains, L3's
    omega) through ``_transfer_run``: within one restart of JAX's 28 / 572.
 29. ``examples/sharded_solve.py`` in one process per visible card (NCCL,
@@ -160,7 +167,7 @@ subprocesses too.
    postprocess within 2e-4 of ``DDH``'s, the flagship transfer solve
    through the sharded rolled action within one restart of 18 / 366,
    bitwise on repeat, plain-cycle residual <= 1.2e-4; every rank's K1
-   launches in ``ShardedDDH``'s calls alone (sparse layout (a) only: 3 in
+   launches in ``ShardedDDH``'s calls alone (the default kernel in layout (a) only: 3 in
    the direct comparison, 4 in the two solves) are read from the record.
 30. The flagship transfer solve with ``DDH(rhs_split="mass")`` (plain-cycle
    residual <= 1.2e-4, two probe launches) and ``run_ddh`` with
@@ -172,21 +179,38 @@ subprocesses too.
    size the cards give), and ``python -m
    cuddhelmholtz_tpu_torch.examples.scaling`` at nx 128 with and without
    ``--transfer``; the direct rows launch K1 once per sharded matvec.
+33. The tensor-core kernel against the sparse (FFMA) one at every (a) and
+   (b) shape the comparisons of phases 2, 4, 10, 17, 19, 23 and 28 ran,
+   timed in turns in those phases: both ms, the kernel the default picks
+   there, the plain ms, the tensor-core bound and the route's own tile
+   work, and each kernel's registers, warps, shared memory and blocks per
+   SM there.  The shapes lie on both sides of the rule (``mma_preferred``:
+   S's tiles and pad): the square's S at 960 and 3,648 rows, the
+   flagship's at 384, 1,024, 5,472 and 12,000.  (At phase 8's pad 632 the
+   tile form does not fit, and only the sparse kernel runs.)
 Every comparison holds a kernel within 2e-4 of the plain cycle relative to
-the max of u and v, with padded slots exactly 0.  The main-path runs
+the max of u and v, with padded slots exactly 0, the tensor-core kernel
+within 2e-4 of the sparse one and bitwise on a repeat.  The main-path runs
 (phases 3, 5, 6, 7, 9, 12, 13, 16, 17, 18, 19, 21, 23, 24, 25, 27-32) must
-launch the sparse kernel and no dense one, and over them every instance of
-the sparse kernel ((a), (b) and the per-row (c)) must have launched.
+launch the kernel the dispatch picks for their shape in each layout
+(``_k1``: ``mma_shared`` / ``mma_grouped`` where the tile form fits and
+the rule of ``kernel_variant`` picks it, ``sparse_*`` elsewhere,
+``sparse_per_row`` for (c)) and no dense one, and every key those checks
+asked for must have launched over them.
 
 Every kernel count is set to 0 just before each main-path run and read just
 after; the ``launches`` of a kernel in the JSON line is the sum over those
 runs.  Comparisons run after the main-path runs and are not counted.
-``bound_ms`` is the larger of the FP32 FMA work on the non-zeros of S
-(2 products of the rows by the exact non-zeros per leapfrog step) over
-67 TFLOP/s and the bytes read once (F, G, Ha, mi, tables and S's sparse
-form) and written once (u, v) over 3.35 TB/s (H100 SXM peaks), the same
-for the sparse and the dense kernels, which compute the same function; no
-single PyTorch call computes a WaveHoltz cycle, so ``library_ms`` is null.
+``bound_ms`` is the larger of the work on the non-zeros of S (2 products
+of the rows by the exact non-zeros per leapfrog step) over the card's peak
+for the kernel's arithmetic and the bytes read once (F, G, Ha, mi, tables
+and S's form) and written once (u, v) over 3.35 TB/s (H100 SXM peaks):
+FP32 FMA at 67 TFLOP/s for the FFMA and dense kernels; three TF32 passes
+of that work at 495 TFLOP/s for the tensor-core kernel, whose rows add an
+informational ``tile_work_ms``: every MAC of its 8 x 8 tiles, zeros
+inside a tile included, three passes per 8-row block and step, at 495
+TFLOP/s (the route's own work, not a bound on the function).  No single
+PyTorch call computes a WaveHoltz cycle, so ``library_ms`` is null.
 
 Output: diagnostics, then a ``{"kernels": [...]}`` JSON line, the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Exits
@@ -230,8 +254,10 @@ def _rel_max(got, want) -> float:
 
 
 PEAK_FP32_FLOPS = 67e12  # H100 SXM, FP32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12  # H100 SXM, TF32 on the tensor cores, dense
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 DENSE = ("shared", "grouped", "streamed_shared", "streamed_grouped")
+REQUIRED: set = set()  # the launch keys the main-path checks asked for
 
 
 def _cycle_flop(form, group_rows: int, nt: int, wh_maxit: int) -> float:
@@ -254,17 +280,49 @@ def _cycle_bound(form, group_rows: int, rows: int, pad: int, nt: int,
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def _compare(wc, p, F, G, wh_maxit, pad_mask, what, variants, reps=3, form=None, **kw):
+def _mma_bound(tiles, group_rows: int, rows: int, pad: int, nt: int,
+               wh_maxit: int) -> tuple[float, str]:
+    """Least time of one cycle on the tensor cores: the products on the
+    exact non-zeros of S (``_cycle_flop``'s work, counted from the tiles'
+    non-zero values) done three times, the three TF32 passes of the split,
+    at the TF32 tensor peak; or the bytes read (F, G, Ha, mi, tables, the
+    tile form's live tiles with their k-tile offsets and each group's slot
+    table) and written (u, v) once against the memory rate, whichever is
+    larger."""
+    ng, nslot = tiles.ptr.shape[0], tiles.ptr.shape[1] - 1
+    nnz = float((tiles.val != 0).sum())
+    t_ops = 3 * 2.0 * 2 * wh_maxit * nt * group_rows * nnz / PEAK_TF32_FLOPS
+    live = float(tiles.ptr[:, -1].double().sum())
+    nbytes = (4.0 * (6 * rows * pad + 5 * nt) + 258.0 * live
+              + ng * (4.0 * (nslot + 1) + 2.0 * nslot))
+    t_bytes = nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _tile_work(tiles, group_rows: int, nt: int, wh_maxit: int) -> float:
+    """The time (ms) of the tensor-core route's own work at the TF32 peak,
+    informational and not a bound on the function: every MAC of each 8-row
+    block's 16 x 8 x 8 products over the non-zero tiles, the zeros inside a
+    tile included, three passes per tile and step."""
+    blocks = -(-group_rows // 8)
+    macs = 3 * 16 * 64 * blocks * float(tiles.ptr[:, -1].double().sum()) * nt * wh_maxit
+    return 1e3 * 2 * macs / PEAK_TF32_FLOPS
+
+
+def _compare(wc, p, F, G, wh_maxit, pad_mask, what, variants, reps=3, form=None, tiles=None,
+             **kw):
     """Each kernel ``variants`` names against the plain cycle on the same
     inputs; raises on a relative error >= 2e-4 or non-zero padding.  Returns
     ({variant: (max abs err, ms)}, plain ms, {variant: (u, v)}).  The plain
     cycle is timed on its checked call; the kernels after their checked
     calls, in turns (v0, v1, ..., v1, v0), ``reps`` launches a turn, so
-    each pair is compared on the card's state of the moment.  ``form`` is
-    the sparse kernel's prebuilt sparse form.  ``"sparse_tiled"`` runs a
-    per-row stack on the sparse kernel with each row tiled x8 onto layout
-    (b), as the JAX solver does (and the port did before its per-row
-    instance), and reads every 8th row back."""
+    each pair is compared on the card's state of the moment.  ``form`` and
+    ``tiles`` are the sparse and tensor-core kernels' prebuilt forms; with
+    both kernels the tensor-core one is also held to the sparse one (2e-4)
+    and must repeat bitwise.  ``"sparse_tiled"`` runs a per-row stack on
+    the sparse kernel with each row tiled x8 onto layout (b), as the JAX
+    solver does (and the port did before its per-row instance), and reads
+    every 8th row back."""
     import torch
 
     def run(v):
@@ -276,10 +334,20 @@ def _compare(wc, p, F, G, wh_maxit, pad_mask, what, variants, reps=3, form=None,
                                  wh_maxit, r, variant="sparse", sparse=form)
             return u[::r], v[::r]
         return wc.wave_cycle(p, F, G, wh_maxit, variant=v, sparse=form if v == "sparse" else None,
-                             **kw)
+                             tiles=tiles if v == "mma" else None, **kw)
 
     outs = {v: run(v) for v in variants}
     torch.cuda.synchronize()
+    if "mma" in outs:
+        again = run("mma")
+        if not all(torch.equal(a, b) for a, b in zip(again, outs["mma"])):
+            _fail(f"{what}: the tensor-core kernel does not repeat bitwise")
+        if "sparse" in outs:
+            err = max(_rel_max(a, b) for a, b in zip(outs["mma"], outs["sparse"]))
+            print(f"{what}: mma against sparse rel err {err:.3e}; mma repeats bitwise")
+            if not err < 2e-4:
+                _fail(f"{what}: the tensor-core and sparse kernels disagree: {err:.3e}")
+        del again
     (u_p, v_p), plain_ms = _timed(lambda: wc.wave_cycle_plain(p, F, G, wh_maxit, **kw))
     errs = {}
     for v, (u_k, v_k) in outs.items():
@@ -309,6 +377,53 @@ def _form_ms(wc, S):
     return _timed(lambda: wc.sparse_form(S))
 
 
+def _tiles_ms(wc, S):
+    """(tile form of S, CUDA-event ms of its build after one untimed build)."""
+    wc.tile_form(S)
+    return _timed(lambda: wc.tile_form(S))
+
+
+def _depth(tiles) -> int:
+    """The most pairs any warp slot of the tile form walks a step."""
+    return int(tiles.ptr.diff(dim=1).max())
+
+
+def _add_shape(wc, dev, shapes, layout, at, res, plain_ms, bound, pad, nt, wh_maxit, *,
+               form=None, form_ms=None, tiles=None, tiles_ms=None, group_rows=None,
+               dense=None):
+    """Append a ``shapes`` row for each K1 kernel ``res`` holds (``"mma"``,
+    ``"sparse"``) at one shape of layout ``layout`` (``"shared"``,
+    ``"grouped"``): its ms, the plain ms and its bound (``bound``, the FP32
+    one on the non-zeros, for the FFMA kernel; ``_mma_bound`` for the
+    tensor-core one, with the informational ``_tile_work`` of
+    ``group_rows`` rows a matrix and the FFMA kernel's ms from the same
+    turns); prints each kernel's registers, shared memory and blocks per SM
+    there."""
+    occ = {}
+    for k in ("mma", "sparse"):
+        if k not in res:
+            continue
+        occ[k] = wc.kernel_occupancy(k, pad, tiles if k == "mma" else form, dev)
+        b = bound
+        if k == "mma":
+            rows = group_rows * tiles.ptr.shape[0]
+            b = _mma_bound(tiles, group_rows, rows, pad, nt, wh_maxit)
+        row = {"at": at, "ms": res[k][1], "plain_ms": plain_ms, "bound_ms": b[0],
+               "bound_by": b[1], "occupancy": occ[k]}
+        if k == "mma":
+            row.update(pairs=tiles.pairs, depth=_depth(tiles), tiles_ms=tiles_ms,
+                       tile_work_ms=_tile_work(tiles, group_rows, nt, wh_maxit),
+                       default="mma" if wc.mma_preferred(pad, tiles.pairs) else "sparse")
+            if "sparse" in res:
+                row["sparse_ms"] = res["sparse"][1]
+        else:
+            row.update(nnz=_nnz(form), stride=form.stride, form_ms=form_ms)
+        if dense is not None:
+            row.update(dense_ms=res[dense][1], dense=dense)
+        shapes[f"{k}_{layout}"].append(row)
+    print(f"{at}: registers, dynamic shared memory and blocks per SM {json.dumps(occ)}")
+
+
 def _nnz(form) -> int:
     """The largest nnz over the form's groups."""
     return int(form.ptr[:, -1].max())
@@ -324,11 +439,38 @@ def _rates(what, flop_sparse, rows, pad, nt, wh_maxit, res, bound, by):
               for v, (_, ms) in res.items()))
 
 
-def _only_sparse(launches, key, what):
-    if launches[f"sparse_{key}"] == 0 or any(launches[k] for k in DENSE):
-        layout = {"shared": "a", "grouped": "b", "per_row": "c"}[key]
-        _fail(f"{what}: want sparse layout-({layout}) launches and no dense ones, "
-              f"got {launches}")
+def _k1(wc, ddh) -> str:
+    """The kernel the DDH's cycles and probes run by default in layouts (a)
+    and (b) (``default_variant`` of its shared S, or of the unique
+    subdomains' matrices its probes read): ``"mma"`` where
+    ``mma_preferred`` holds, else ``"sparse"``."""
+    import torch
+
+    if ddh.S.dim() == 2:
+        return wc.default_variant(ddh.S)
+    uidx, _, _ = ddh._domain_groups()
+    return wc.default_variant(ddh.S, torch.as_tensor(uidx, device=ddh.S.device))
+
+
+def _only_k1(launches, key, what, want):
+    """Fails unless the run launched ``want``'s kernel (``"mma"`` or
+    ``"sparse"``) in layout ``key``, not the other one there, and no dense
+    kernel; records the key for the final check that every kernel the
+    main paths ask for ran.  ``want`` None (a subprocess's several DDHs,
+    whose forms this process cannot see) takes either kernel."""
+    layout = {"shared": "a", "grouped": "b", "per_row": "c"}[key]
+    if want is None:
+        if not (launches[f"mma_{key}"] or launches[f"sparse_{key}"]) or any(
+                launches[k] for k in DENSE):
+            _fail(f"{what}: want K1 layout-({layout}) launches and no dense ones, got "
+                  f"{launches}")
+        return
+    other = {"mma": "sparse", "sparse": "mma"}[want]
+    if (launches[f"{want}_{key}"] == 0 or launches.get(f"{other}_{key}", 0)
+            or any(launches[k] for k in DENSE)):
+        _fail(f"{what}: want {want} layout-({layout}) launches, no {other} one there and no "
+              f"dense ones, got {launches}")
+    REQUIRED.add(f"{want}_{key}")
 
 
 def _per_row_vs_tiled(what, outs, res):
@@ -520,7 +662,7 @@ def _level_run(wc, run, what, max_restarts, coarse, gm):
           f"{res.res_norm[-1]:.6e}; peak memory {torch.cuda.max_memory_allocated()} B")
     if not res.success or res.num_iter > max_restarts:
         _fail(f"{what}: success={res.success}, {res.num_iter} restarts (> {max_restarts}?)")
-    _only_sparse(launches, "shared", what)
+    _only_k1(launches, "shared", what, _k1(wc, ddh))
     if again != 0 or not bitwise:
         _fail(f"{what}: the repeated solve launched {again} kernels or differs ({bitwise})")
     if not resid <= 1.2 * gm.tol:
@@ -931,11 +1073,12 @@ def _module_run(module: str, args: list[str], what: str) -> tuple[list[str], dic
     return p.stdout.splitlines(), json.loads(tail[-1][len("LAUNCHES "):])
 
 
-def _phases_25_to_27(wc, dev, res14, counts5, total) -> None:
+def _phases_25_to_27(wc, dev, res14, counts5, total, k1) -> None:
     """Phases 25-27 (``_fwi_run``, ``_host_loop_run``, ``_studies_run``),
     with their prints and launch checks; their launches are added to
     ``total``.  ``res14`` is phase 14's ``helmholtz_unpreconditioned``
-    result, ``counts5`` phase 5's flagship transfer counts."""
+    result, ``counts5`` phase 5's flagship transfer counts, ``k1`` the
+    kernel the flagship's pad-176 cycles run by default (``_k1``)."""
     # --- 25. wave-speed inversion at the flagship problem ------------------------
     t25 = time.perf_counter()
     fwi, launches = _fwi_run(wc, dev)
@@ -956,8 +1099,8 @@ def _phases_25_to_27(wc, dev, res14, counts5, total) -> None:
           f"{fwi['value_grad_seconds'][1]:.2f} s, invert_wavespeed(steps=2) "
           f"{fwi['invert_seconds']:.2f} s, {fwi['ms_per_p']:.2f} ms per P (solve wall), "
           f"peak device memory {fwi['peak_memory_bytes'] / 1e9:.3f} GB")
-    if launches != {**dict.fromkeys(launches, 0), "sparse_shared": 4}:
-        _fail(f"fwi: launches {launches}; want the sparse layout-(a) probes of the two "
+    if launches != {**dict.fromkeys(launches, 0), f"{k1}_shared": 4}:
+        _fail(f"fwi: launches {launches}; want the {k1} layout-(a) probes of the two "
               "prepares, two each")
     for k in total:
         total[k] += launches[k]
@@ -989,8 +1132,8 @@ def _phases_25_to_27(wc, dev, res14, counts5, total) -> None:
     for r in st["partition"]:
         print(f"partition study: {json.dumps(r)}")
     print(f"studies launches {launches}")
-    _only_sparse(launches, "shared", "studies (the sweep's probes)")
-    _only_sparse(launches, "grouped", "studies (the partition study's probes)")
+    _only_k1(launches, "shared", "studies (the sweep's probes)", k1)
+    _only_k1(launches, "grouped", "studies (the partition study's probes)", None)
     for k in total:
         total[k] += launches[k]
     print(f"phase 27: {time.perf_counter() - t27:.1f} s")
@@ -1091,8 +1234,8 @@ def _l4_run(wc, dev, rng, shapes) -> tuple[dict, dict, dict]:
     if not res.success or res.num_iter > 20 or abs(res.num_iter - 18) > 1:
         _fail(f"L4: success={res.success}, {res.num_iter} restarts; want <= 20 and JAX's "
               "18 +-1")
-    _only_sparse(launches, "grouped", "L4")
-    _only_sparse(launches, "per_row", "L4 rhs/postprocess")
+    _only_k1(launches, "grouped", "L4", _k1(wc, ddh))
+    _only_k1(launches, "per_row", "L4 rhs/postprocess", "sparse")
     if again != {**dict.fromkeys(again, 0), "sparse_per_row": 2} or not bitwise:
         _fail(f"L4: the repeated solve launched {again} (want 2 per-row: rhs, postprocess) "
               f"or differs ({bitwise})")
@@ -1120,36 +1263,38 @@ def _l4_run(wc, dev, rng, shapes) -> tuple[dict, dict, dict]:
     pb = p._replace(S=p.S[ui].contiguous(), Ha=p.Ha[ui].repeat_interleave(c8, 0),
                     inv_mi=p.inv_mi[ui].repeat_interleave(c8, 0))
     form_b, form_ms_b = _form_ms(wc, pb.S)
+    tiles_b, tiles_ms_b = _tiles_ms(wc, pb.S)
     bmask = ddh.gmask[ui].repeat_interleave(c8, 0)
     bm = bmask.cpu().numpy()
     Fb, Gb = _masked_normal(rng, bm, dev), _masked_normal(rng, bm, dev)
     rows_b = len(ui) * c8
     what = f"L4 layout (b), {len(ui)} probe runs of {c8} rows, pad {ddh.pad}"
-    res_b, plain_b, _ = _compare(wc, pb, Fb, Gb, ddh.wh_maxit, bmask == 0, what, ("sparse",),
-                                 reps=1, form=form_b, s_group_size=c8)
+    res_b, plain_b, _ = _compare(wc, pb, Fb, Gb, ddh.wh_maxit, bmask == 0, what,
+                                 ("mma", "sparse"), reps=1, form=form_b, tiles=tiles_b,
+                                 s_group_size=c8)
     bound_b, by_b = _cycle_bound(form_b, c8, rows_b, ddh.pad, ddh.nt, ddh.wh_maxit)
     _rates(what, _cycle_flop(form_b, c8, ddh.nt, ddh.wh_maxit), rows_b, ddh.pad, ddh.nt,
            ddh.wh_maxit, res_b, bound_b, by_b)
-    shapes["sparse_grouped"].append({
-        "at": f"L4 transfer probe, {len(ui)} of {nu} runs of {c8} rows, pad {ddh.pad}, "
-              f"nt {ddh.nt}", "nnz": _nnz(form_b), "stride": form_b.stride,
-        "form_ms": form_ms_b, "ms": res_b["sparse"][1], "plain_ms": plain_b,
-        "bound_ms": bound_b, "bound_by": by_b,
-    })
+    _add_shape(wc, dev, shapes, "grouped",
+               f"L4 transfer probe, {len(ui)} of {nu} runs of {c8} rows, pad {ddh.pad}, "
+               f"nt {ddh.nt}", res_b, plain_b, (bound_b, by_b), ddh.pad, ddh.nt, ddh.wh_maxit,
+               form=form_b, form_ms=form_ms_b, tiles=tiles_b, tiles_ms=tiles_ms_b,
+               group_rows=c8)
     shapes["sparse_per_row"].append(row_c)
-    rec["k1_ms_per_cycle"] = {"probe_b": res_b["sparse"][1], "probe_b_bound": bound_b,
-                              "rhs_c": res_c["sparse"][1],
+    rec["k1_ms_per_cycle"] = {"probe_b_mma": res_b["mma"][1], "probe_b": res_b["sparse"][1],
+                              "probe_b_bound": bound_b, "rhs_c": res_c["sparse"][1],
                               "rhs_c_tiled": res_c["sparse_tiled"][1], "rhs_c_bound": bound_c}
-    return rec, launches, {"b": res_b["sparse"], "c": res_c["sparse"], "c_plain_ms": plain_c,
-                           "c_bound": (bound_c, by_c)}
+    return rec, launches, {"b": res_b["sparse"], "b_mma": res_b["mma"], "c": res_c["sparse"],
+                           "c_plain_ms": plain_c, "c_bound": (bound_c, by_c)}
 
 
-def _phases_28_to_32(wc, dev, rng, counts5, ms18, bench20, lomega, total, shapes) -> dict:
+def _phases_28_to_32(wc, dev, rng, counts5, ms18, bench20, lomega, total, shapes, k1) -> dict:
     """Phases 28-32; their launches are added to ``total`` and the
     comparisons' (max abs error, ms) returned.  ``counts5`` is phase 5's
     flagship transfer counts, ``ms18`` phase 18's multi-source result
     (solution, restarts, per-source matvecs), ``bench20`` phase 20's bench
-    record, ``lomega`` phase 9's L3 omega."""
+    record, ``lomega`` phase 9's L3 omega, ``k1`` the kernel the flagship's
+    cycles run by default."""
     import torch
     import torch.distributed as dist
 
@@ -1189,7 +1334,7 @@ def _phases_28_to_32(wc, dev, rng, counts5, ms18, bench20, lomega, total, shapes
         gm=ucfg.gmres, jax_restarts=28)
     print(f"large_unstructured control record: "
           f"{json.dumps(lu.case_record(f'jittered_{nxj}x{nxj}', ctrl, res))}")
-    _only_sparse(launches, "grouped", "L3 --control probes")
+    _only_k1(launches, "grouped", "L3 --control probes", _k1(wc, res.extra["ddh"]))
     for k in total:
         total[k] += launches[k]
     del res
@@ -1220,10 +1365,10 @@ def _phases_28_to_32(wc, dev, rng, counts5, ms18, bench20, lomega, total, shapes
               f"{sh['plain_residual']:.3e}, finite {sh['solution_finite']}")
     # ShardedDDH's own launches on every rank: one each for the direct action,
     # rhs and postprocess, then rhs and postprocess in each of the two solves
-    if sh["launches_direct"] != [{"sparse_shared": 3}] * world or \
-            sh["launches_solves"] != [{"sparse_shared": 4}] * world:
+    if sh["launches_direct"] != [{f"{k1}_shared": 3}] * world or \
+            sh["launches_solves"] != [{f"{k1}_shared": 4}] * world:
         _fail(f"sharded solve: ShardedDDH launched {sh['launches_direct']} (direct) and "
-              f"{sh['launches_solves']} (two solves) per rank; want sparse layout (a) only, "
+              f"{sh['launches_solves']} (two solves) per rank; want {k1} layout (a) only, "
               "3 and 4 on every rank")
     for k, v in (*sh["launches_direct"][0].items(), *sh["launches_solves"][0].items()):
         total[k] += v
@@ -1250,8 +1395,8 @@ def _phases_28_to_32(wc, dev, rng, counts5, ms18, bench20, lomega, total, shapes
           f"plain-cycle residual {resid:.3e}, launches {launches}")
     if not out.success or not resid <= 1.2e-4 or not bool(torch.isfinite(U).all()):
         _fail(f"rhs_split='mass': success={out.success}, plain-cycle residual {resid:.3e}")
-    if launches != {**dict.fromkeys(launches, 0), "sparse_shared": 2}:
-        _fail(f"rhs_split='mass': launches {launches}; want the two sparse layout-(a) probes")
+    if launches != {**dict.fromkeys(launches, 0), f"{k1}_shared": 2}:
+        _fail(f"rhs_split='mass': launches {launches}; want the two {k1} layout-(a) probes")
     for k in total:
         total[k] += launches[k]
     del mddh
@@ -1267,7 +1412,7 @@ def _phases_28_to_32(wc, dev, rng, counts5, ms18, bench20, lomega, total, shapes
         del os.environ["CUDDH_DEBUG"]
     if (res.num_iter, res.num_matvec) != counts5:
         _fail(f"CUDDH_DEBUG=1: {res.num_iter} / {res.num_matvec}; want phase 5's {counts5}")
-    _only_sparse(launches, "shared", "CUDDH_DEBUG=1 flagship")
+    _only_k1(launches, "shared", "CUDDH_DEBUG=1 flagship", _k1(wc, res.extra["ddh"]))
     for k in total:
         total[k] += launches[k]
     del res
@@ -1297,7 +1442,7 @@ def _phases_28_to_32(wc, dev, rng, counts5, ms18, bench20, lomega, total, shapes
         _fail(f"shard_sources: {res.extra['n_shard']} shards, {res.num_iter} restarts, "
               f"{res.extra['per_source_matvecs']}, rel {d:.3e}; want phase 18's "
               f"{ms18['restarts']}, {ms18['per']} within 1e-5")
-    _only_sparse(launches, "shared", "shard_sources probes")
+    _only_k1(launches, "shared", "shard_sources probes", _k1(wc, res.extra["ddh"]))
     for k in total:
         total[k] += launches[k]
     del res
@@ -1321,8 +1466,8 @@ def _phases_28_to_32(wc, dev, rng, counts5, ms18, bench20, lomega, total, shapes
         if ([r["devices"] for r in recs] != sizes or r0["backend"] != "nccl"
                 or r0["nx"] != cfg.nx or r0["n_domains"] != 1024 or not r0["finite"]):
             _fail(f"scaling {args}: {recs}")
-        if "--transfer" not in args and r0["launches"] != {"sparse_shared": 4}:
-            _fail(f"scaling {args}: rank 0 launched {r0['launches']}; want 4 sparse (a) "
+        if "--transfer" not in args and r0["launches"] != {f"{k1}_shared": 4}:
+            _fail(f"scaling {args}: rank 0 launched {r0['launches']}; want 4 {k1} (a) "
                   "(a warm-up and 3 timed sharded matvecs)")
         for k, v in r0["launches"].items():
             total[k] += v
@@ -1398,27 +1543,49 @@ def main() -> int:
     if float((p.S - p.S.T).abs().max()) > 1e-6 * float(p.S.abs().max()):
         _fail("flagship stiffness is not symmetric")
     form_a, form_ms_a = _form_ms(wc, p.S)
+    tiles_a, tiles_ms_a = _tiles_ms(wc, p.S)
     nnz_a = _nnz(form_a)
+    k1 = _k1(wc, ddh)
     print(f"flagship sparse form: nnz {nnz_a} (dense {ddh.pad ** 2}), stride {form_a.stride}, "
-          f"built in {form_ms_a:.3f} ms")
+          f"built in {form_ms_a:.3f} ms; tile form: {tiles_a.pairs} of "
+          f"{(ddh.pad // 8) ** 2} 8 x 8 tiles, at most {_depth(tiles_a)} a slot, built in "
+          f"{tiles_ms_a:.3f} ms; default kernel {k1}")
     rng = np.random.default_rng(0)
     gmask = ddh.gmask.cpu().numpy()
     F = torch.from_numpy((rng.standard_normal(gmask.shape) * gmask).astype(np.float32)).to(dev)
     G = torch.from_numpy((rng.standard_normal(gmask.shape) * gmask).astype(np.float32)).to(dev)
 
     res_a, plain_ms, uv_a = _compare(wc, p, F, G, ddh.wh_maxit, ddh.gmask == 0,
-                                     "wave cycle (a), flagship", ("sparse", "resident"),
-                                     form=form_a)
+                                     "wave cycle (a), flagship", ("mma", "sparse", "resident"),
+                                     form=form_a, tiles=tiles_a)
     bound_a, by_a = _cycle_bound(form_a, ddh.n_domains, ddh.n_domains, ddh.pad, ddh.nt,
                                  ddh.wh_maxit)
     _rates("wave cycle (a), flagship", _cycle_flop(form_a, ddh.n_domains, ddh.nt, ddh.wh_maxit),
            ddh.n_domains, ddh.pad, ddh.nt, ddh.wh_maxit, res_a, bound_a, by_a)
-    shapes = {"sparse_shared": [], "sparse_grouped": [], "sparse_per_row": []}
-    shapes["sparse_shared"].append({
-        "at": f"flagship, {ddh.n_domains} rows, pad {ddh.pad}, nt {ddh.nt}", "nnz": nnz_a,
-        "stride": form_a.stride, "form_ms": form_ms_a, "ms": res_a["sparse"][1], "dense_ms": res_a["resident"][1],
-        "dense": "resident", "plain_ms": plain_ms, "bound_ms": bound_a, "bound_by": by_a,
-    })
+    shapes = {k: [] for k in ("mma_shared", "mma_grouped", "sparse_shared", "sparse_grouped",
+                              "sparse_per_row")}
+    _add_shape(wc, dev, shapes, "shared",
+               f"flagship, {ddh.n_domains} rows, pad {ddh.pad}, nt {ddh.nt}", res_a, plain_ms,
+               (bound_a, by_a), ddh.pad, ddh.nt, ddh.wh_maxit, form=form_a,
+               form_ms=form_ms_a, tiles=tiles_a, tiles_ms=tiles_ms_a, group_rows=ddh.n_domains,
+               dense="resident")
+    # the flagship's S on 384 rows (the FWI's transfer-probe shape: 48 blocks of
+    # the tensor-core kernel, fewer than the SMs): few rows on the sparse side
+    # of the rule, as the 12,000-row probe of phase 23 is many
+    r384 = torch.arange(384, device=dev) % ddh.n_domains
+    p384 = p._replace(Ha=p.Ha[r384].contiguous(), inv_mi=p.inv_mi[r384].contiguous())
+    m384 = ddh.gmask[r384]
+    F384, G384 = (_masked_normal(rng, m384.cpu().numpy(), dev) for _ in range(2))
+    what = "wave cycle (a), flagship S on 384 rows"
+    res_384, plain_ms_384, _ = _compare(wc, p384, F384, G384, ddh.wh_maxit, m384 == 0, what,
+                                        ("mma", "sparse"), form=form_a, tiles=tiles_a)
+    _add_shape(wc, dev, shapes, "shared",
+               f"flagship S on 384 rows (the FWI transfer probe), pad {ddh.pad}, nt {ddh.nt}",
+               res_384, plain_ms_384,
+               _cycle_bound(form_a, 384, 384, ddh.pad, ddh.nt, ddh.wh_maxit), ddh.pad, ddh.nt,
+               ddh.wh_maxit, form=form_a, form_ms=form_ms_a, tiles=tiles_a,
+               tiles_ms=tiles_ms_a, group_rows=384)
+    del p384, F384, G384, m384
 
     # --- 3. the flagship solve, direct path ------------------------------------
     wc.reset_launches()
@@ -1437,9 +1604,10 @@ def main() -> int:
         _fail("flagship solve did not converge")
     if res.num_iter > 20:
         _fail(f"flagship solve took {res.num_iter} restarts (> 20)")
-    if launches != {**dict.fromkeys(launches, 0), "sparse_shared": res.num_matvec + 2}:
+    if launches != {**dict.fromkeys(launches, 0), f"{k1}_shared": res.num_matvec + 2}:
         _fail(f"kernel launches {launches}: want num_matvec + 2 = {res.num_matvec + 2} "
-              "sparse layout-(a) launches and no other")
+              f"{k1} layout-(a) launches and no other")
+    REQUIRED.add(f"{k1}_shared")
     U = res.solution
     if U.shape != (2 * res.extra["ndof"],) or not np.isfinite(U).all():
         _fail(f"solution has shape {U.shape} or non-finite values")
@@ -1472,22 +1640,40 @@ def main() -> int:
     gp = up._replace(S=up.S[ui].contiguous(), Ha=up.Ha[ui].repeat_interleave(c, 0),
                      inv_mi=up.inv_mi[ui].repeat_interleave(c, 0))
     form_b, form_ms_b = _form_ms(wc, gp.S)
+    tiles_b, tiles_ms_b = _tiles_ms(wc, gp.S)
     gmask = uddh.gmask[ui].repeat_interleave(c, 0)
     gm = gmask.cpu().numpy()
     Fb, Gb = _masked_normal(rng, gm, dev), _masked_normal(rng, gm, dev)
     what = f"wave cycle (b), {nu * c} rows in runs of {c}"
     res_b, plain_ms_b, _ = _compare(wc, gp, Fb, Gb, uddh.wh_maxit, gmask == 0, what,
-                                    ("sparse", "resident"), form=form_b, s_group_size=c)
+                                    ("mma", "sparse", "resident"), form=form_b, tiles=tiles_b,
+                                    s_group_size=c)
     bound_b, by_b = _cycle_bound(form_b, c, nu * c, uddh.pad, uddh.nt, uddh.wh_maxit)
     _rates(what, _cycle_flop(form_b, c, uddh.nt, uddh.wh_maxit), nu * c, uddh.pad, uddh.nt,
            uddh.wh_maxit, res_b, bound_b, by_b)
-    shapes["sparse_grouped"].append({
-        "at": f"unstructured transfer probe, {nu} runs of {c} rows, pad {uddh.pad}, "
-              f"nt {uddh.nt}", "nnz": _nnz(form_b),
-        "stride": form_b.stride, "form_ms": form_ms_b,
-        "ms": res_b["sparse"][1], "dense_ms": res_b["resident"][1], "dense": "resident",
-        "plain_ms": plain_ms_b, "bound_ms": bound_b, "bound_by": by_b,
-    })
+    _add_shape(wc, dev, shapes, "grouped",
+               f"unstructured transfer probe, {nu} runs of {c} rows, pad {uddh.pad}, "
+               f"nt {uddh.nt}", res_b, plain_ms_b, (bound_b, by_b), uddh.pad, uddh.nt,
+               uddh.wh_maxit, form=form_b, form_ms=form_ms_b, tiles=tiles_b,
+               tiles_ms=tiles_ms_b, group_rows=c, dense="resident")
+    # the io-probe shape (runs of 2 pad + 2 pf = 456 rows, 456 blocks of the
+    # tensor-core kernel, past one wave): many rows on the dense side of the rule
+    c_io = 2 * uddh.pad + c
+    gio = gp._replace(Ha=up.Ha[ui].repeat_interleave(c_io, 0),
+                      inv_mi=up.inv_mi[ui].repeat_interleave(c_io, 0))
+    iomask = uddh.gmask[ui].repeat_interleave(c_io, 0)
+    Fi, Gi = (_masked_normal(rng, iomask.cpu().numpy(), dev) for _ in range(2))
+    what = f"wave cycle (b), {nu * c_io} rows in runs of {c_io}"
+    res_io, plain_ms_io, _ = _compare(wc, gio, Fi, Gi, uddh.wh_maxit, iomask == 0, what,
+                                      ("mma", "sparse"), reps=1, form=form_b, tiles=tiles_b,
+                                      s_group_size=c_io)
+    _add_shape(wc, dev, shapes, "grouped",
+               f"unstructured io probe, {nu} runs of {c_io} rows, pad {uddh.pad}, "
+               f"nt {uddh.nt}", res_io, plain_ms_io,
+               _cycle_bound(form_b, c_io, nu * c_io, uddh.pad, uddh.nt, uddh.wh_maxit),
+               uddh.pad, uddh.nt, uddh.wh_maxit, form=form_b, form_ms=form_ms_b,
+               tiles=tiles_b, tiles_ms=tiles_ms_b, group_rows=c_io)
+    del gio, Fi, Gi, iomask
     um = uddh.gmask.cpu().numpy()
     Fc, Gc = _masked_normal(rng, um, dev), _masked_normal(rng, um, dev)
     what = f"wave cycle (c), {uddh.n_domains} rows, one S each"
@@ -1511,7 +1697,7 @@ def main() -> int:
                             block_size=cfg.block_size, transfer=True, device=dev),
         "flagship transfer solve", max_restarts=20, jax_matvecs=366,
         matvec_slack=cfg.gmres.m + 1, gm=cfg.gmres)
-    _only_sparse(launches, "shared", "flagship transfer path")
+    _only_k1(launches, "shared", "flagship transfer path", k1)
     for k in total:
         total[k] += launches[k]
     counts5 = (res5.num_iter, res5.num_matvec)
@@ -1522,7 +1708,7 @@ def main() -> int:
         wc, lambda: run_config(ucfg, device=dev), "unstructured transfer solve",
         max_restarts=100, jax_matvecs=668, matvec_slack=2 * (ucfg.gmres.m + 1),
         gm=ucfg.gmres)
-    _only_sparse(launches, "grouped", "unstructured transfer path")
+    _only_k1(launches, "grouped", "unstructured transfer path", _k1(wc, res6.extra["ddh"]))
     for k in total:
         total[k] += launches[k]
     del res6
@@ -1536,7 +1722,7 @@ def main() -> int:
     if (bddh.pad, bddh.shared_S, bddh.n_domains) != (632, True, 4096):
         _fail(f"ddh_512_block32: pad {bddh.pad}, shared_S {bddh.shared_S}, "
               f"{bddh.n_domains} domains; want 632, True, 4096")
-    _only_sparse(launches, "shared", "ddh_512_block32 probes")
+    _only_k1(launches, "shared", "ddh_512_block32 probes", _k1(wc, bddh))
     for k in total:
         total[k] += launches[k]
 
@@ -1547,6 +1733,11 @@ def main() -> int:
     bp = bddh.params
     pa = bp._replace(Ha=bp.Ha[ui].repeat(c, 1), inv_mi=bp.inv_mi[ui].repeat(c, 1))
     form_sa, form_ms_sa = _form_ms(wc, pa.S)
+    tiles_sa = wc.tile_form(pa.S)
+    print(f"ddh_512_block32: the tensor-core kernel does not take pad {bddh.pad} (at most "
+          f"{wc.MMA_MAX_PAD}): {tiles_sa.pairs} 8 x 8 tiles would need "
+          f"{wc.mma_shared_memory_bytes(bddh.pad, tiles_sa.pairs)} B of shared memory a block "
+          f"(the card allows {wc._shared_memory_limit(dev.index)} B); the sparse kernel runs")
     amask = bddh.gmask[ui].repeat(c, 1)
     am = amask.cpu().numpy()
     Fa, Ga = _masked_normal(rng, am, dev), _masked_normal(rng, am, dev)
@@ -1557,12 +1748,11 @@ def main() -> int:
     bound_sa, by_sa = _cycle_bound(form_sa, rows_sa, rows_sa, pad_sa, nt_sa, bddh.wh_maxit)
     _rates(what, _cycle_flop(form_sa, rows_sa, nt_sa, bddh.wh_maxit), rows_sa, pad_sa, nt_sa,
            bddh.wh_maxit, res_sa, bound_sa, by_sa)
-    shapes["sparse_shared"].append({
-        "at": f"ddh_512_block32 transfer probe, {rows_sa} rows, pad {pad_sa}, nt {nt_sa}",
-        "nnz": _nnz(form_sa), "stride": form_sa.stride, "form_ms": form_ms_sa, "ms": res_sa["sparse"][1],
-        "dense_ms": res_sa["streamed"][1], "dense": "streamed", "plain_ms": plain_ms_sa,
-        "bound_ms": bound_sa, "bound_by": by_sa,
-    })
+    _add_shape(wc, dev, shapes, "shared",
+               f"ddh_512_block32 transfer probe, {rows_sa} rows, pad {pad_sa}, nt {nt_sa}",
+               res_sa, plain_ms_sa, (bound_sa, by_sa), pad_sa, nt_sa, bddh.wh_maxit,
+               form=form_sa, form_ms=form_ms_sa, dense="streamed")
+    shapes["sparse_shared"][-1]["mma_pairs"] = tiles_sa.pairs
     del res7, bddh, bp, pa, Fa, Ga, amask
     torch.cuda.empty_cache()
 
@@ -1581,7 +1771,8 @@ def main() -> int:
             320, False, 256, "grouped"):
         _fail(f"L3: pad {lddh.pad}, shared_S {lddh.shared_S}, nu {pre['transfer_nu']}, "
               f"layout {pre['transfer_layout']}; want 320, False, 256, grouped")
-    _only_sparse(launches, "grouped", "L3 probes")
+    k1_l3 = _k1(wc, lddh)
+    _only_k1(launches, "grouped", "L3 probes", k1_l3)
     launches9 = dict(launches)
     for k in total:
         total[k] += launches[k]
@@ -1594,23 +1785,23 @@ def main() -> int:
     pb = lp._replace(S=lp.S[ui].contiguous(), Ha=lp.Ha[ui].repeat_interleave(c, 0),
                      inv_mi=lp.inv_mi[ui].repeat_interleave(c, 0))
     form_sb, form_ms_sb = _form_ms(wc, pb.S)
+    tiles_sb, tiles_ms_sb = _tiles_ms(wc, pb.S)
     bmask = lddh.gmask[ui].repeat_interleave(c, 0)
     bm = bmask.cpu().numpy()
     Fb, Gb = _masked_normal(rng, bm, dev), _masked_normal(rng, bm, dev)
     rows_sb, pad_sb, nt_sb = nu * c, lddh.pad, lddh.nt
     what = f"layout (b), L3 transfer probe ({nu} runs of {c} rows, pad {pad_sb})"
     res_sb, plain_ms_sb, _ = _compare(wc, pb, Fb, Gb, lddh.wh_maxit, bmask == 0, what,
-                                      ("sparse", "streamed"), reps=1, form=form_sb,
-                                      s_group_size=c)
+                                      ("mma", "sparse", "streamed"), reps=1, form=form_sb,
+                                      tiles=tiles_sb, s_group_size=c)
     bound_sb, by_sb = _cycle_bound(form_sb, c, rows_sb, pad_sb, nt_sb, lddh.wh_maxit)
     _rates(what, _cycle_flop(form_sb, c, nt_sb, lddh.wh_maxit), rows_sb, pad_sb, nt_sb,
            lddh.wh_maxit, res_sb, bound_sb, by_sb)
-    shapes["sparse_grouped"].append({
-        "at": f"L3 transfer probe, {nu} runs of {c} rows, pad {pad_sb}, nt {nt_sb}",
-        "nnz": _nnz(form_sb), "stride": form_sb.stride, "form_ms": form_ms_sb, "ms": res_sb["sparse"][1],
-        "dense_ms": res_sb["streamed"][1], "dense": "streamed", "plain_ms": plain_ms_sb,
-        "bound_ms": bound_sb, "bound_by": by_sb,
-    })
+    _add_shape(wc, dev, shapes, "grouped",
+               f"L3 transfer probe, {nu} runs of {c} rows, pad {pad_sb}, nt {nt_sb}", res_sb,
+               plain_ms_sb, (bound_sb, by_sb), pad_sb, nt_sb, lddh.wh_maxit, form=form_sb,
+               form_ms=form_ms_sb, tiles=tiles_sb, tiles_ms=tiles_ms_sb, group_rows=c,
+               dense="streamed")
     del res9, lddh, lp, pb, Fb, Gb, bmask
     torch.cuda.empty_cache()
 
@@ -1619,7 +1810,7 @@ def main() -> int:
                                  "streamed (a) forced, flagship", ("sparse", "streamed"),
                                  form=form_a)
     u_s, v_s = uv_s["streamed"]
-    for v in ("resident", "sparse"):
+    for v in ("mma", "resident", "sparse"):
         err = max(_rel_max(u_s, uv_a[v][0]), _rel_max(v_s, uv_a[v][1]))
         print(f"streamed vs {v} at pad {ddh.pad}: rel err {err:.3e}")
         if not err < 2e-4:
@@ -1640,7 +1831,7 @@ def main() -> int:
                        Basis(hcfg.deg + 1), hcfg.nx, hcfg.nx)
     res12, launches, c12 = _composite_run(
         wc, lambda: run_config(hcfg, device=dev), "helmholtz_ddh_1e6", 12, gfem, dev)
-    _only_sparse(launches, "shared", "helmholtz_ddh_1e6 prepare")
+    _only_k1(launches, "shared", "helmholtz_ddh_1e6 prepare", _k1(wc, res12.extra["ddh"]))
     for k in total:
         total[k] += launches[k]
     # phase 22 holds its patch path to the gather path, in P too
@@ -1651,7 +1842,8 @@ def main() -> int:
     res13, launches, c13 = _composite_run(
         wc, lambda: run_config(HELMHOLTZ_DDH_UNSTRUCTURED_1E6, device=dev),
         "helmholtz_ddh_unstructured_1e6", 8, ufem, dev)
-    _only_sparse(launches, "grouped", "helmholtz_ddh_unstructured_1e6 prepare")
+    _only_k1(launches, "grouped", "helmholtz_ddh_unstructured_1e6 prepare",
+             _k1(wc, res13.extra["ddh"]))
     for k in total:
         total[k] += launches[k]
     n2 = c13["U"].shape[0]
@@ -1718,10 +1910,11 @@ def main() -> int:
     print(f"large_unstructured L3 --composite: lambda-solve {rec['restarts']} / "
           f"{rec['matvecs']} in {rec['solve_seconds']:.3f} s (prepare "
           f"{rec['prepare_seconds']:.3f} s); composite {comp}; launches {launches}")
-    _only_sparse(launches, "grouped", "L3 --composite")
-    if launches["sparse_grouped"] != 2 * launches9["sparse_grouped"]:
-        _fail(f"L3 --composite launched {launches['sparse_grouped']} sparse kernels; want "
-              f"twice phase 9's {launches9['sparse_grouped']} (two prepares, none in P)")
+    _only_k1(launches, "grouped", "L3 --composite", k1_l3)
+    key = f"{k1_l3}_grouped"
+    if launches[key] != 2 * launches9[key]:
+        _fail(f"L3 --composite launched {launches[key]} {k1_l3} kernels; want twice phase "
+              f"9's {launches9[key]} (two prepares, none in P)")
     if not (comp["success"] and comp["final_rel_res"] <= 1e-6 and comp["iters"] <= 10
             and comp["refine_steps"] <= 6):
         _fail(f"L3 --composite: {comp}; want success, rel <= 1e-6, <= 10 restarts and "
@@ -1745,7 +1938,7 @@ def main() -> int:
           f"solve {res17.seconds:.3f} s; io maps {io_bytes} B")
     if (hddh.n_domains, hddh.shared_S) != (4096, True):
         _fail(f"ddh_high_frequency: {hddh.n_domains} domains, shared_S {hddh.shared_S}")
-    _only_sparse(launches, "shared", "ddh_high_frequency probes")
+    _only_k1(launches, "shared", "ddh_high_frequency probes", _k1(wc, hddh))
     for k in total:
         total[k] += launches[k]
     uidx, _, nu = hddh._domain_groups()
@@ -1759,17 +1952,17 @@ def main() -> int:
     rows_h = nu * c
     what = f"layout (a), ddh_high_frequency transfer probe ({nu} x {c} rows, pad {hddh.pad})"
     res_h, plain_ms_h, _ = _compare(wc, ph, Fh, Gh, hddh.wh_maxit, hmask == 0, what,
-                                    ("sparse",), reps=1, form=hddh.S_sparse)
+                                    ("mma", "sparse"), reps=1, form=hddh.S_sparse,
+                                    tiles=hddh.S_tiles)
     bound_h, by_h = _cycle_bound(hddh.S_sparse, rows_h, rows_h, hddh.pad, hddh.nt,
                                  hddh.wh_maxit)
     _rates(what, _cycle_flop(hddh.S_sparse, rows_h, hddh.nt, hddh.wh_maxit), rows_h, hddh.pad,
            hddh.nt, hddh.wh_maxit, res_h, bound_h, by_h)
-    shapes["sparse_shared"].append({
-        "at": f"ddh_high_frequency transfer probe, {rows_h} rows, pad {hddh.pad}, nt {hddh.nt}",
-        "nnz": _nnz(hddh.S_sparse), "stride": hddh.S_sparse.stride,
-        "form_ms": 1e3 * hddh.sparse_seconds, "ms": res_h["sparse"][1], "plain_ms": plain_ms_h,
-        "bound_ms": bound_h, "bound_by": by_h,
-    })
+    _add_shape(wc, dev, shapes, "shared",
+               f"ddh_high_frequency transfer probe, {rows_h} rows, pad {hddh.pad}, nt {hddh.nt}",
+               res_h, plain_ms_h, (bound_h, by_h), hddh.pad, hddh.nt, hddh.wh_maxit,
+               form=hddh.S_sparse, form_ms=1e3 * hddh.sparse_seconds, tiles=hddh.S_tiles,
+               tiles_ms=1e3 * hddh.tiles_seconds, group_rows=rows_h)
     del res17, hddh, hp, ph, Fh, Gh, hmask
     torch.cuda.empty_cache()
     print(f"phase 17: {time.perf_counter() - t17:.1f} s")
@@ -1826,7 +2019,7 @@ def main() -> int:
         _fail(f"ddh_multi_source_8: per-source matvecs {per}, want 1 + 41 x restarts")
     if again != 0:
         _fail(f"ddh_multi_source_8: the repeated solve launched {again} kernels")
-    _only_sparse(launches, "shared", "ddh_multi_source_8 probes")
+    _only_k1(launches, "shared", "ddh_multi_source_8 probes", _k1(wc, mddh))
     for k in total:
         total[k] += launches[k]
     Us = res18.solution
@@ -1865,16 +2058,17 @@ def main() -> int:
           f"direct solves {solo_counts}")
     if not (rb.success and rv.success):
         _fail("direct multi-source: a solve did not converge")
-    if lb != {**dict.fromkeys(lb, 0), "sparse_shared": block_mv + 2}:
-        _fail(f"direct multi-source block: launches {lb}, want {block_mv + 2} sparse layout-(a) "
-              "launches (one per block matvec, rhs and postprocess) and no other")
+    k1_v = _k1(wc, vddh)
+    if lb != {**dict.fromkeys(lb, 0), f"{k1_v}_shared": block_mv + 2}:
+        _fail(f"direct multi-source block: launches {lb}, want {block_mv + 2} {k1_v} "
+              "layout-(a) launches (one per block matvec, rhs and postprocess) and no other")
     if rb.num_iter > max(rv.extra["per_source_restarts"]):
         _fail(f"direct multi-source: block took {rb.num_iter} restarts, more than the slowest "
               f"lock-step lane's {max(rv.extra['per_source_restarts'])}")
     if solo_counts != list(zip(rv.extra["per_source_restarts"], rv.extra["per_source_matvecs"])):
         _fail(f"direct multi-source vmap: lanes {rv.extra['per_source_restarts']} / "
               f"{rv.extra['per_source_matvecs']}, solo solves {solo_counts}")
-    _only_sparse(lv, "shared", "direct multi-source vmap")
+    _only_k1(lv, "shared", "direct multi-source vmap", k1_v)
     for k in total:
         total[k] += lb[k] + lv[k]
     pk = _rows(vddh.params, K19)
@@ -1884,17 +2078,16 @@ def main() -> int:
     rows_k = K19 * vddh.n_domains
     what = f"layout (a), direct multi-source block matvec ({K19} x {vddh.n_domains} rows)"
     res_k, plain_ms_k, _ = _compare(wc, pk, Fk, Gk, vddh.wh_maxit, kmask == 0, what,
-                                    ("sparse",), form=vddh.S_sparse)
+                                    ("mma", "sparse"), form=vddh.S_sparse, tiles=vddh.S_tiles)
     bound_k, by_k = _cycle_bound(vddh.S_sparse, rows_k, rows_k, vddh.pad, vddh.nt,
                                  vddh.wh_maxit)
     _rates(what, _cycle_flop(vddh.S_sparse, rows_k, vddh.nt, vddh.wh_maxit), rows_k, vddh.pad,
            vddh.nt, vddh.wh_maxit, res_k, bound_k, by_k)
-    shapes["sparse_shared"].append({
-        "at": f"direct multi-source matvec, {K19} x {vddh.n_domains} rows, pad {vddh.pad}, "
-              f"nt {vddh.nt}", "nnz": _nnz(vddh.S_sparse), "stride": vddh.S_sparse.stride,
-        "form_ms": 1e3 * vddh.sparse_seconds, "ms": res_k["sparse"][1], "plain_ms": plain_ms_k,
-        "bound_ms": bound_k, "bound_by": by_k,
-    })
+    _add_shape(wc, dev, shapes, "shared",
+               f"direct multi-source matvec, {K19} x {vddh.n_domains} rows, pad {vddh.pad}, "
+               f"nt {vddh.nt}", res_k, plain_ms_k, (bound_k, by_k), vddh.pad, vddh.nt,
+               vddh.wh_maxit, form=vddh.S_sparse, form_ms=1e3 * vddh.sparse_seconds,
+               tiles=vddh.S_tiles, tiles_ms=1e3 * vddh.tiles_seconds, group_rows=rows_k)
     del rb, rv, vddh, vbs, solo, pk, Fk, Gk
     torch.cuda.empty_cache()
     print(f"phase 19: {time.perf_counter() - t19:.1f} s")
@@ -1929,9 +2122,9 @@ def main() -> int:
                                 tol=cfg.gmres.tol, wh_maxit=cfg.wh_maxit,
                                 block_size=cfg.block_size, transfer=True, device=dev),
             "setup cache, flagship transfer solve", cache_dir)
-        if launches != {**dict.fromkeys(launches, 0), "sparse_shared": 2}:
+        if launches != {**dict.fromkeys(launches, 0), f"{k1}_shared": 2}:
             _fail(f"setup cache: the cold flagship run launched {launches}; want the two "
-                  "sparse layout-(a) probes of phase 5")
+                  f"{k1} layout-(a) probes of phase 5")
         if (cold.num_iter, cold.num_matvec) != counts5:
             _fail(f"setup cache: {cold.num_iter} / {cold.num_matvec}, phase 5 {counts5}")
         for k in total:
@@ -1939,7 +2132,8 @@ def main() -> int:
         del cold
         cold, launches = _cache_pair(wc, lambda: run_config(bcfg, device=dev),
                                      "setup cache, ddh_512_block32", cache_dir)
-        _only_sparse(launches, "shared", "setup cache, ddh_512_block32 cold run")
+        _only_k1(launches, "shared", "setup cache, ddh_512_block32 cold run",
+                 _k1(wc, cold.extra["ddh"]))
         for k in total:
             total[k] += launches[k]
         del cold
@@ -2043,17 +2237,17 @@ def main() -> int:
     rows_23 = nu * c
     what = f"layout (a), nx 512 / block 16 transfer probe ({nu} x {c} rows, pad {cddh.pad})"
     res_23, plain_ms_23, _ = _compare(wc, p23, F23, G23, cddh.wh_maxit, m23 == 0, what,
-                                      ("sparse",), reps=1, form=cddh.S_sparse)
+                                      ("mma", "sparse"), reps=1, form=cddh.S_sparse,
+                                      tiles=cddh.S_tiles)
     bound_23, by_23 = _cycle_bound(cddh.S_sparse, rows_23, rows_23, cddh.pad, cddh.nt,
                                    cddh.wh_maxit)
     _rates(what, _cycle_flop(cddh.S_sparse, rows_23, cddh.nt, cddh.wh_maxit), rows_23,
            cddh.pad, cddh.nt, cddh.wh_maxit, res_23, bound_23, by_23)
-    shapes["sparse_shared"].append({
-        "at": f"nx 512 / block 16 transfer probe, {rows_23} rows, pad {cddh.pad}, "
-              f"nt {cddh.nt}", "nnz": _nnz(cddh.S_sparse), "stride": cddh.S_sparse.stride,
-        "form_ms": 1e3 * cddh.sparse_seconds, "ms": res_23["sparse"][1],
-        "plain_ms": plain_ms_23, "bound_ms": bound_23, "bound_by": by_23,
-    })
+    _add_shape(wc, dev, shapes, "shared",
+               f"nx 512 / block 16 transfer probe, {rows_23} rows, pad {cddh.pad}, "
+               f"nt {cddh.nt}", res_23, plain_ms_23, (bound_23, by_23), cddh.pad, cddh.nt,
+               cddh.wh_maxit, form=cddh.S_sparse, form_ms=1e3 * cddh.sparse_seconds,
+               tiles=cddh.S_tiles, tiles_ms=1e3 * cddh.tiles_seconds, group_rows=rows_23)
     del res23, cddh, cp, p23, F23, G23, m23
     torch.cuda.empty_cache()
     print(f"phase 23: {time.perf_counter() - t23:.1f} s")
@@ -2065,31 +2259,45 @@ def main() -> int:
                       coarse="multiplicative", device=dev)
     launches = dict(wc.wave_cycle.launches)
     print(f"large_unstructured L3 --coarse multiplicative: {json.dumps(rec)}; launches {launches}")
-    _only_sparse(launches, "grouped", "L3 --coarse")
+    _only_k1(launches, "grouped", "L3 --coarse", k1_l3)
     if not rec["success"] or rec["restarts"] > 21 or "coarse" not in rec:
         _fail(f"L3 --coarse: success={rec['success']}, {rec['restarts']} restarts (> 21?)")
     for k in total:
         total[k] += launches[k]
     print(f"phase 24: {time.perf_counter() - t24:.1f} s")
 
-    _phases_25_to_27(wc, dev, res14, counts5, total)
+    _phases_25_to_27(wc, dev, res14, counts5, total, k1)
     print(f"phases 1-27: {time.perf_counter() - t_main:.1f} s")
-    cmp4 = _phases_28_to_32(wc, dev, rng, counts5, ms18, bench20, lomega, total, shapes)
+    cmp4 = _phases_28_to_32(wc, dev, rng, counts5, ms18, bench20, lomega, total, shapes, k1)
     print(f"phases 1-32: {time.perf_counter() - t_main:.1f} s")
     print(f"kernel launches over the main-path runs: {total}")
-    missing = [k for k in ("sparse_shared", "sparse_grouped", "sparse_per_row") if not total[k]]
-    if missing:
+    missing = sorted(k for k in REQUIRED if not total[k])
+    if missing or not REQUIRED:
         _fail(f"the main-path runs launched no {', '.join(missing)} kernel: {total}")
-    for row in (r for rows in shapes.values() for r in rows):
-        dense = (f" against {row['dense']} {row['dense_ms']:.3f} ms "
-                 f"({row['dense_ms'] / row['ms']:.2f}x)" if "dense" in row else "")
-        if "tiled_ms" in row:
-            dense += (f", the x8-tiled route {row['tiled_ms']:.3f} ms "
-                      f"({row['tiled_ms'] / row['ms']:.2f}x)")
-        print(f"sparse kernel at {row['at']}: {row['ms']:.3f} ms{dense}, plain "
-              f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms ({row['bound_by']}, "
-              f"{row['bound_ms'] / row['ms']:.1%} of it), nnz {row['nnz']} (stride "
-              f"{row['stride']}), form {row['form_ms']:.3f} ms")
+    for key, rows in shapes.items():
+        for row in rows:
+            extra = (f" against {row['dense']} {row['dense_ms']:.3f} ms "
+                     f"({row['dense_ms'] / row['ms']:.2f}x)" if "dense" in row else "")
+            if "tiled_ms" in row:
+                extra += (f", the x8-tiled route {row['tiled_ms']:.3f} ms "
+                          f"({row['tiled_ms'] / row['ms']:.2f}x)")
+            if "nnz" in row:
+                extra += (f", nnz {row['nnz']} (stride {row['stride']}), form "
+                          f"{row['form_ms']:.3f} ms")
+            print(f"{key} kernel at {row['at']}: {row['ms']:.3f} ms{extra}, plain "
+                  f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms ({row['bound_by']}, "
+                  f"{row['bound_ms'] / row['ms']:.1%} of it)")
+
+    # --- 33. the tensor-core kernel against the FFMA one at every shape ----------
+    for row in shapes["mma_shared"] + shapes["mma_grouped"]:
+        print(f"phase 33, {row['at']}: mma {row['ms']:.3f} ms against sparse (FFMA) "
+              f"{row['sparse_ms']:.3f} ms in the same turns ({row['sparse_ms'] / row['ms']:.2f}x); "
+              f"default {row['default']}; plain {row['plain_ms']:.3f} ms; bound (3 TF32 passes "
+              f"on the non-zeros) {row['bound_ms']:.3f} ms ({row['bound_by']}, "
+              f"{row['bound_ms'] / row['ms']:.1%} of it); the route's own tile work ("
+              f"{row['pairs']} tiles) {row['tile_work_ms']:.3f} ms "
+              f"({row['tile_work_ms'] / row['ms']:.1%}); tiles {row['tiles_ms']:.3f} ms to "
+              f"build, at most {row['depth']} a slot; {json.dumps(row['occupancy'])}")
 
     def entry(name, source, line, key, err, kms, pms, bound, by, **extra):
         return {
@@ -2099,15 +2307,33 @@ def main() -> int:
             "bound_ms": bound, "bound_by": by, "library_ms": None, **extra,
         }
 
+    mma_a, mma_b = shapes["mma_shared"][0], shapes["mma_grouped"]
+    mma_b = next(r for r in mma_b if r["at"].startswith("L3"))
     print(json.dumps({"kernels": [
+        entry("wave_cycle mma (a) shared S", "wave_cycle_mma.cu", 69, "mma_shared",
+              max(res_a["mma"][0], res_384["mma"][0], res_h["mma"][0], res_k["mma"][0],
+                  res_23["mma"][0]),
+              res_a["mma"][1], plain_ms, mma_a["bound_ms"], mma_a["bound_by"],
+              tile_work_ms=mma_a["tile_work_ms"],
+              sparse_ms=res_a["sparse"][1], pairs=tiles_a.pairs, tiles_ms=tiles_ms_a,
+              shapes=shapes["mma_shared"]),
+        entry("wave_cycle mma (b) grouped S", "wave_cycle_mma.cu", 201, "mma_grouped",
+              max(res_b["mma"][0], res_io["mma"][0], res_sb["mma"][0], cmp4["b_mma"][0]),
+              res_sb["mma"][1],
+              plain_ms_sb, mma_b["bound_ms"], mma_b["bound_by"],
+              tile_work_ms=mma_b["tile_work_ms"],
+              sparse_ms=res_sb["sparse"][1], pairs=tiles_sb.pairs, tiles_ms=tiles_ms_sb,
+              shapes=shapes["mma_grouped"]),
         entry("wave_cycle sparse (a) shared S", "wave_cycle_sparse.cu", 69, "sparse_shared",
-              max(res_a["sparse"][0], res_sa["sparse"][0], res_s176["sparse"][0],
-                  res_h["sparse"][0], res_k["sparse"][0], res_23["sparse"][0]),
-              res_a["sparse"][1], plain_ms, bound_a, by_a, nnz=nnz_a, stride=form_a.stride, form_ms=form_ms_a,
+              max(res_a["sparse"][0], res_384["sparse"][0], res_sa["sparse"][0],
+                  res_s176["sparse"][0], res_h["sparse"][0], res_k["sparse"][0],
+                  res_23["sparse"][0]),
+              res_a["sparse"][1], plain_ms, bound_a, by_a, nnz=nnz_a, stride=form_a.stride,
+              form_ms=form_ms_a,
               shapes=shapes["sparse_shared"]),
         entry("wave_cycle sparse (b) grouped S", "wave_cycle_sparse.cu", 201, "sparse_grouped",
-              max(res_b["sparse"][0], res_c["sparse_tiled"][0], res_sb["sparse"][0],
-                  cmp4["b"][0]),
+              max(res_b["sparse"][0], res_io["sparse"][0], res_c["sparse_tiled"][0],
+                  res_sb["sparse"][0], cmp4["b"][0]),
               res_sb["sparse"][1], plain_ms_sb, bound_sb, by_sb, nnz=_nnz(form_sb),
               stride=form_sb.stride, form_ms=form_ms_sb, shapes=shapes["sparse_grouped"]),
         entry("wave_cycle sparse (c) per-row S", "wave_cycle_sparse.cu", 233, "sparse_per_row",

@@ -381,4 +381,14 @@ int wave_cycle_sparse_blocks_per_sm(int rows, int pad, int stride, int device) {
   return err == cudaSuccess ? blocks : -1;
 }
 
+// Registers a thread of the instance of `rows` rows (kRows or 1), or -1.
+int wave_cycle_sparse_registers(int rows, int device) {
+  if ((rows != kRows && rows != 1) || cudaSetDevice(device) != cudaSuccess) return -1;
+  cudaFuncAttributes attr;
+  const cudaError_t err = rows == 1
+                              ? cudaFuncGetAttributes(&attr, wave_cycle_sparse_kernel<1>)
+                              : cudaFuncGetAttributes(&attr, wave_cycle_sparse_kernel<kRows>);
+  return err == cudaSuccess ? attr.numRegs : -1;
+}
+
 }  // extern "C"

@@ -12,13 +12,19 @@ Pallas kernel's three stiffness layouts:
       onto (b) (its ``solvers/ddh.py::_wave_cycle``: free on the TPU's 8-row
       tile, 8x the work here).  ``cycle_route`` decides.
 
-Three kernels serve every layout, chosen by shape and non-zero count
-(``kernel_variant``): ``csrc/wave_cycle_sparse.cu`` applies S from its exact
-non-zeros (``sparse_form``, a CSC of S) held in shared memory, the default
-wherever that form fits; ``csrc/wave_cycle.cu`` keeps the dense S resident
-in shared memory (pad <= 224 on an H100) and ``csrc/wave_cycle_streamed.cu``
-streams it through shared memory in panels (pad up to 1024), the dense
-kernels a caller can force.  For tensors on the CPU ``wave_cycle`` runs
+Four kernels serve the layouts, chosen by shape and S's tiles and
+non-zeros (``kernel_variant``): ``csrc/wave_cycle_mma.cu`` applies S on the
+tensor cores (``mma.sync`` m16n8k8, a 3-pass TF32 split, the counterpart of
+the Pallas kernel's 3-pass bf16 split on the MXU) from its non-zero 8 x 8
+tiles (``tile_form``), in layouts (a) and (b), the default where that form
+fits and the card measured it faster (``mma_preferred``);
+``csrc/wave_cycle_sparse.cu`` applies S from its exact non-zeros
+(``sparse_form``, a CSC of S) held in shared memory with FP32 FFMA, the
+default elsewhere and for layout (c); ``csrc/wave_cycle.cu`` keeps the
+dense S resident in shared memory
+(pad <= 224 on an H100) and ``csrc/wave_cycle_streamed.cu`` streams it
+through shared memory in panels (pad up to 1024), the dense kernels a
+caller can force.  For tensors on the CPU ``wave_cycle`` runs
 ``wave_cycle_plain``, the JAX package's ``_wave_cycle_xla`` loop as torch
 ops; for a CUDA tensor it launches a kernel or raises.
 
@@ -54,17 +60,31 @@ SPARSE_ROWS_PER_BLOCK = 4  # kRows in csrc/wave_cycle_sparse.cu, layouts (a) and
 SPARSE_MAX_PAD = 640  # csrc/wave_cycle_sparse.cu: one thread per column
 MAX_THREADS = 512  # kMaxThreads in csrc/wave_cycle.cu: two threads per column
 STREAMED_MAX_PAD = 1024  # csrc/wave_cycle_streamed.cu: pad / 2 threads, at most 512
-VARIANTS = ("sparse", "resident", "streamed")  # in the order the default tries them
+TILE = 8  # the tensor-core kernel's S tiles: 8 (k) x 8 (i), the k and n of m16n8k8
+MMA_ROWS_PER_BLOCK = ROWS_PER_BLOCK  # kRows in csrc/wave_cycle_mma.cu: [p ; p_half] is M = 16
+# (slots, warp cap) of each instance of csrc/wave_cycle_mma.cu: a warp owns up
+# to `slots` output-column tiles; the cap keeps the block's registers on an SM
+MMA_INSTANCES = ((1, 24), (2, 20), (3, 16), (4, 16))
+MMA_MAX_PAD = TILE * max(slots * cap for slots, cap in MMA_INSTANCES)
+# The default runs the tensor-core kernel ahead of the sparse one only where
+# the card measured it faster (``mma_preferred``): one slot a warp (pad <=
+# MMA_PREFERRED_MAX_PAD) and S's non-zero 8 x 8 tiles dense enough, at least
+# MMA_PREFERRED_TILES k-tiles per output-column tile in its largest group.
+MMA_PREFERRED_MAX_PAD = TILE * MMA_INSTANCES[0][1]  # one slot a warp: 192
+MMA_PREFERRED_TILES = 9
+VARIANTS = ("mma", "sparse", "resident", "streamed")
 
 _PKG = Path(__file__).resolve().parents[2]
 SOURCES = {
+    "mma": _PKG / "csrc" / "wave_cycle_mma.cu",
     "sparse": _PKG / "csrc" / "wave_cycle_sparse.cu",
     "resident": _PKG / "csrc" / "wave_cycle.cu",
     "streamed": _PKG / "csrc" / "wave_cycle_streamed.cu",
 }
 # prefix of each library's C entry points
 _ENTRY = {
-    "sparse": "wave_cycle_sparse_", "resident": "wave_cycle_", "streamed": "wave_cycle_streamed_",
+    "mma": "wave_cycle_mma_", "sparse": "wave_cycle_sparse_", "resident": "wave_cycle_",
+    "streamed": "wave_cycle_streamed_",
 }
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
@@ -95,29 +115,57 @@ def sparse_shared_memory_bytes(pad: int, stride: int, rows: int = SPARSE_ROWS_PE
     return 4 * 4 * rows * pad + 6 * stride
 
 
-def kernel_variant(pad: int, limit: int, stride: int | None = None,
-                   variant: str | None = None, per_row: bool = False) -> str:
-    """The kernel that runs a cycle at ``pad`` on a card that allows
-    ``limit`` bytes of shared memory per block, for a sparse form of
-    ``stride`` entries per group (``SparseS.stride``: the non-zeros as the
-    kernel stages them, at least the nnz; None: no form).  ``per_row``: a
-    layout-(c) stack, which the sparse kernel runs one row per block.
+def mma_preferred(pad: int, pairs: int) -> bool:
+    """Whether the default runs the tensor-core kernel ahead of the sparse
+    (FFMA) one at ``pad`` for an S whose largest group holds ``pairs``
+    non-zero 8 x 8 tiles (``TileS.pairs``, ``tile_pairs``): one output tile
+    a warp (pad <= MMA_PREFERRED_MAX_PAD) and at least MMA_PREFERRED_TILES
+    k-tiles per output tile in that group.  A rule on S's shape alone, from
+    the two kernels timed in turns over a ladder of 384 to 12,288 rows on an
+    NVIDIA H100 80GB HBM3 at 700 W (``examples/k1_study.py``; PERF.md
+    section 6): the rows do not decide.  The unstructured square's S (pad
+    168, 231 tiles, 11 per output tile) runs faster on the tensor cores at
+    every row count, 960 to 12,032 (17.36 against 21.39 ms at 960, 61.54
+    against 66.94 at 3,648, 185.2 against 202.4 at 12,032); the flagship's
+    (pad 176, 158 tiles, 7.2) slower at every one, 384 to 12,000 (6.28
+    against 6.13 at 1,024, 74.24 against 61.71 at 12,000); L3's (pad 320,
+    two output tiles a warp) slower at 1,024 to 12,288 (24.03 against
+    20.65 at 1,024)."""
+    return pad <= MMA_PREFERRED_MAX_PAD and TILE * pairs >= MMA_PREFERRED_TILES * pad
 
-    By default: ``"sparse"`` when the form and the row state fit (pad <=
-    SPARSE_MAX_PAD and ``sparse_shared_memory_bytes`` <= limit), else
-    ``"resident"`` when the dense S and the row state fit and pad <=
-    MAX_THREADS / 2, else ``"streamed"`` (pad <= STREAMED_MAX_PAD).  The
-    choice rests on these shapes alone.  ``variant`` names the kernel
-    instead.  Raises when the chosen kernel does not take the shape."""
-    rows = 1 if per_row else SPARSE_ROWS_PER_BLOCK
+
+def kernel_variant(pad: int, limit: int, stride: int | None = None,
+                   variant: str | None = None, per_row: bool = False,
+                   pairs: int | None = None) -> str:
+    """The kernel that runs a cycle at ``pad`` on a card that allows
+    ``limit`` bytes of shared memory per block, for a tile form of ``pairs``
+    non-zero 8 x 8 tiles per group (``TileS.pairs``; None: no form) and a
+    sparse form of ``stride`` entries per group (``SparseS.stride``: the
+    non-zeros as the kernel stages them, at least the nnz; None: no form).
+    ``per_row``: a layout-(c) stack, which the sparse kernel runs one row
+    per block and the tensor-core kernel does not take.
+
+    By default: ``"mma"`` when ``mma_preferred`` holds and the tile form
+    and the row state fit (pad <= MMA_MAX_PAD and
+    ``mma_shared_memory_bytes`` <= limit), else ``"sparse"`` when the
+    sparse form and the row state fit (pad <= SPARSE_MAX_PAD and
+    ``sparse_shared_memory_bytes`` <= limit), else ``"resident"`` when the
+    dense S and the row state fit and pad <= MAX_THREADS / 2, else
+    ``"streamed"`` (pad <= STREAMED_MAX_PAD).  The choice rests on these
+    shapes alone.  ``variant`` names the kernel instead.  Raises when the
+    chosen kernel does not take the shape."""
+    block_rows = 1 if per_row else SPARSE_ROWS_PER_BLOCK
     fits = {
+        "mma": pairs is not None and not per_row and pad <= MMA_MAX_PAD and pad % TILE == 0
+        and mma_shared_memory_bytes(pad, pairs) <= limit,
         "sparse": stride is not None and pad <= SPARSE_MAX_PAD
-        and sparse_shared_memory_bytes(pad, stride, rows) <= limit,
+        and sparse_shared_memory_bytes(pad, stride, block_rows) <= limit,
         "resident": 2 * pad <= MAX_THREADS and shared_memory_bytes(pad) <= limit,
         "streamed": pad <= STREAMED_MAX_PAD and streamed_shared_memory_bytes(pad) <= limit,
     }
     if variant is None:
-        for name in VARIANTS:
+        first = ("mma",) if pairs is not None and mma_preferred(pad, pairs) else ()
+        for name in (*first, "sparse", "resident", "streamed"):
             if fits[name]:
                 return name
     elif variant not in fits:
@@ -125,15 +173,17 @@ def kernel_variant(pad: int, limit: int, stride: int | None = None,
     elif fits[variant]:
         return variant
     need = {
-        "sparse": None if stride is None else sparse_shared_memory_bytes(pad, stride, rows),
+        "mma": None if pairs is None else mma_shared_memory_bytes(pad, pairs),
+        "sparse": None if stride is None else sparse_shared_memory_bytes(pad, stride, block_rows),
         "resident": shared_memory_bytes(pad),
         "streamed": streamed_shared_memory_bytes(pad),
     }
     raise ValueError(
         f"wave_cycle: no kernel{'' if variant is None else ' ' + variant} takes pad={pad} "
-        f"(sparse stride {stride}): bytes of shared memory per block {need}, the card "
-        f"allows {limit} B; pad <= {SPARSE_MAX_PAD} (sparse), {MAX_THREADS // 2} "
-        f"(resident), {STREAMED_MAX_PAD} (streamed)"
+        f"(tile pairs {pairs}, sparse stride {stride}{', per-row S' if per_row else ''}): "
+        f"bytes of shared memory per block {need}, the card allows {limit} B; pad <= "
+        f"{MMA_MAX_PAD} (mma, layouts (a) and (b)), {SPARSE_MAX_PAD} (sparse), "
+        f"{MAX_THREADS // 2} (resident), {STREAMED_MAX_PAD} (streamed)"
     )
 
 
@@ -155,9 +205,10 @@ def cycle_route(variant: str, ndom: int, ngroups: int | None,
     ``s_group_size``).  The sparse kernel runs (c) in its per-row instance,
     ``ndom`` rows against ``ndom`` groups with no copies; the dense kernels'
     blocks need runs of ROWS_PER_BLOCK rows, so they take each row
-    ROWS_PER_BLOCK times in layout (b), as the JAX solver does.  Raises when
-    the rows do not match the groups."""
-    prefix = {"sparse": "sparse_", "resident": "", "streamed": "streamed_"}[variant]
+    ROWS_PER_BLOCK times in layout (b), as the JAX solver does; the
+    tensor-core kernel does not take (c).  Raises when the rows do not
+    match the groups."""
+    prefix = {"mma": "mma_", "sparse": "sparse_", "resident": "", "streamed": "streamed_"}[variant]
     if ngroups is None:
         if s_group_size is not None:
             raise ValueError("wave_cycle: s_group_size needs a 3-D stiffness stack")
@@ -174,6 +225,9 @@ def cycle_route(variant: str, ndom: int, ngroups: int | None,
         raise ValueError(f"wave_cycle: a per-row stack of {ngroups} matrices for {ndom} rows")
     if variant == "sparse":
         return Route("sparse_per_row", ndom, ndom, 1, 1)
+    if variant == "mma":
+        raise ValueError("wave_cycle: the mma kernel does not take a per-row stack (layout (c)); "
+                         "its sparse per-row instance does")
     r = ROWS_PER_BLOCK
     return Route(prefix + "grouped", r * ndom, ndom, r, r)
 
@@ -230,6 +284,201 @@ def sparse_form(S: torch.Tensor) -> SparseS:
     return SparseS(ptr, idx, val, order.to(torch.int16))
 
 
+def mma_layout(pad: int) -> tuple[int, int]:
+    """(slots, warps) of the tensor-core kernel at ``pad``: each warp owns
+    up to ``slots`` output-column tiles of 8 (the SLOTS instances in
+    ``csrc/wave_cycle_mma.cu``), in as few slots as an instance's warp cap
+    allows.  Above MMA_MAX_PAD no instance runs; the layout is then the
+    last cap's, which a ``tile_form`` of such an S (for its counts and the
+    plain cycle) still uses."""
+    n_i = -(-pad // TILE)
+    for slots, cap in MMA_INSTANCES:
+        if n_i <= slots * cap:
+            return slots, -(-n_i // slots)
+    slots = -(-n_i // MMA_INSTANCES[-1][1])
+    return slots, -(-n_i // slots)
+
+
+def mma_shared_memory_bytes(pad: int, pairs: int) -> int:
+    """Dynamic shared memory one block of the tensor-core kernel needs: two
+    buffers of the stacked [p ; p_half] rows of its MMA_ROWS_PER_BLOCK
+    subdomains (2 x 16 pad floats, in fragment order) and one S's ``pairs``
+    non-zero 8 x 8 tiles (64 floats and a 2-byte k-tile offset each)."""
+    return 4 * 2 * 2 * MMA_ROWS_PER_BLOCK * pad + (4 * TILE * TILE + 2) * pairs
+
+
+class TileS(NamedTuple):
+    """The stiffness as its non-zero 8 (k) x 8 (i) tiles for ``ngroups``
+    matrices, the form the tensor-core kernel reads: ``out[:, 8 i:8 i + 8]
+    += P[:, 8 k:8 k + 8] @ tile`` for every pair (k-tile, i-tile) whose tile
+    holds a non-zero.  A 2-D S is one group.
+
+    The pairs of a group run in (warp, slot) order, ascending k-tile within
+    a slot: warp w of the kernel computes output-column tile ``col[w *
+    slots + s]`` (-1: none) of its slots s from pairs ``ptr[w * slots + s]
+    <= j < ptr[w * slots + s + 1]``, with (slots, warps) = ``mma_layout(pad)``.
+    The i-tiles are dealt to the warps by falling pair count in snake
+    order, so the warps' loops run nearly one length.  Each tile's 64
+    values are stored in the ``mma.sync`` B-fragment order: lane ``4 n + t``
+    holds S[8 k + t, 8 i + n] and S[8 k + t + 4, 8 i + n].  ``pairs``, the
+    tiles kept per group (the tail past a group's count is zero), is the
+    largest count over the groups.
+    """
+
+    val: torch.Tensor  # (ngroups, pairs, 64) tile values in fragment order, S's dtype
+    kt: torch.Tensor  # (ngroups, pairs) int16 k-tile of each pair
+    it: torch.Tensor  # (ngroups, pairs) int16 i-tile of each pair
+    ptr: torch.Tensor  # (ngroups, warps * slots + 1) int32 pair offsets per (warp, slot)
+    col: torch.Tensor  # (ngroups, warps * slots) int16 i-tile of each (warp, slot), -1 none
+
+    @property
+    def pairs(self) -> int:
+        return self.kt.shape[1]
+
+    def take(self, index: torch.Tensor) -> "TileS":
+        """The form of the groups ``index`` (as ``S[index]``)."""
+        return TileS(*(t[index].contiguous() for t in self))
+
+
+def _tiles_of(S3: torch.Tensor) -> torch.Tensor:
+    """(ng, pad, pad) -> (ng, k-tiles, i-tiles, 8, 8) views of its tiles."""
+    ng, pad, _ = S3.shape
+    n = pad // TILE
+    return S3.reshape(ng, n, TILE, n, TILE).permute(0, 1, 3, 2, 4)
+
+
+def tile_pairs(S: torch.Tensor, index: torch.Tensor | None = None) -> int:
+    """The most non-zero 8 x 8 tiles in one group of ``S`` (of the groups
+    ``index`` of a stack; None: all), ``TileS.pairs`` of the form of those
+    groups, counted without building it."""
+    S3 = S if S.dim() == 3 else S.unsqueeze(0)
+    counts = (_tiles_of(S3) != 0).any(4).any(3).sum((1, 2))
+    return max(1, int((counts if index is None else counts[index]).max()))
+
+
+def tile_form(S: torch.Tensor) -> TileS:
+    """The non-zero 8 x 8 tiles of ``S`` ((pad, pad), or (ngroups, pad,
+    pad); pad a multiple of 8) as a ``TileS``, built with torch ops on S's
+    device.  The kernel takes it up to MMA_MAX_PAD."""
+    S3 = S if S.dim() == 3 else S.unsqueeze(0)
+    ng, pad, _ = S3.shape
+    if pad % TILE:
+        raise ValueError(f"wave_cycle: pad={pad} must be a multiple of {TILE}")
+    slots, warps = mma_layout(pad)
+    n = pad // TILE
+    dev = S.device
+    tiles = _tiles_of(S3)  # [g, kt, it, k, i]
+    nz = (tiles != 0).any(4).any(3)  # [g, kt, it]
+    counts = nz.sum(1)  # pairs per i-tile
+    order = torch.sort(counts, dim=1, descending=True, stable=True).indices  # rank -> i-tile
+    # (warp, slot) -> rank: slot s deals ranks s W .. s W + W - 1, forward on
+    # even slots and backward on odd ones
+    w = torch.arange(warps, device=dev)
+    s = torch.arange(slots, device=dev)
+    rank = s[None, :] * warps + torch.where(s[None, :] % 2 == 0, w[:, None], warps - 1 - w[:, None])
+    rank = rank.reshape(-1)  # index w * slots + s
+    ok = rank < n
+    col = torch.full((ng, warps * slots), -1, dtype=torch.long, device=dev)
+    col[:, ok] = order[:, rank[ok]]
+    # pairs in (group, warp-slot, k-tile) order
+    sel = nz.transpose(1, 2).gather(1, col.clamp_min(0)[:, :, None].expand(ng, warps * slots, n))
+    sel &= (col >= 0)[:, :, None]
+    g, q, k = sel.nonzero(as_tuple=True)
+    per_slot = sel.sum(2)
+    per_group = per_slot.sum(1)
+    pairs = max(1, int(per_group.max()))
+    ptr = torch.zeros((ng, warps * slots + 1), dtype=torch.int32, device=dev)
+    ptr[:, 1:] = per_slot.cumsum(1)
+    pos = torch.arange(g.numel(), device=dev) - (per_group.cumsum(0) - per_group)[g]
+    i = col[g, q]
+    # B-fragment order: [n][t][h] holds tile[t + 4 h, n]
+    frag = tiles[g, k, i].reshape(-1, 2, 4, TILE).permute(0, 3, 2, 1).reshape(-1, TILE * TILE)
+    val = torch.zeros((ng, pairs, TILE * TILE), dtype=S.dtype, device=dev)
+    val[g, pos] = frag
+    kt = torch.zeros((ng, pairs), dtype=torch.int16, device=dev)
+    kt[g, pos] = k.to(torch.int16)
+    it = torch.zeros((ng, pairs), dtype=torch.int16, device=dev)
+    it[g, pos] = i.to(torch.int16)
+    return TileS(val, kt, it, ptr, col.to(torch.int16))
+
+
+def tile_matrices(form: TileS) -> torch.Tensor:
+    """(ngroups, pairs, 8, 8): each pair's tile as S[8 k + r, 8 i + c] at
+    [r, c], from the fragment order (zero past a group's count)."""
+    ng, pairs, _ = form.val.shape
+    return form.val.reshape(ng, pairs, TILE, 4, 2).permute(0, 1, 4, 3, 2).reshape(
+        ng, pairs, TILE, TILE)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """Float32 ``x`` rounded to TF32 (10 mantissa bits) to nearest, ties
+    away from zero, as ``cvt.rna.tf32.f32`` does."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_truncate(x: torch.Tensor) -> torch.Tensor:
+    """Float32 ``x`` cut to TF32 toward zero: the 19 bits a TF32 ``mma``
+    reads of a float32 register."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) TF32 parts of float32 ``x`` as the tensor-core kernel forms
+    them: hi = ``tf32_round(x)``, lo = x - hi (exact) as the ``mma`` reads
+    it, ``tf32_truncate(x - hi)``; hi + lo holds x to 2^-21 of its
+    magnitude."""
+    hi = tf32_round(x)
+    return hi, tf32_truncate(x - hi)
+
+
+def tile_dense(form: TileS, pad: int) -> torch.Tensor:
+    """(ngroups, pad, pad): the matrices the form holds, each pair's tile
+    put back in place (the inverse of ``tile_form``)."""
+    ng = form.val.shape[0]
+    n = pad // TILE
+    out = torch.zeros((ng, n, n, TILE, TILE), dtype=form.val.dtype, device=form.val.device)
+    count = form.ptr[:, -1].long()
+    live = torch.arange(form.pairs, device=count.device)[None, :] < count[:, None]
+    g, j = live.nonzero(as_tuple=True)
+    out[g, form.kt[g, j].long(), form.it[g, j].long()] = tile_matrices(form)[g, j]
+    return out.permute(0, 1, 3, 2, 4).reshape(ng, pad, pad)
+
+
+def _tile_apply(form: TileS, pad: int, split: bool = False):
+    """``p -> p @ S`` through the form's tiles (gather the k-tile columns of
+    each pair, multiply by its tile, add into its i-tile); ``p``'s rows run
+    in ``ngroups`` equal runs, one per group.  With ``split`` it is the CPU
+    model of the tensor-core kernel's product (float32 only): p and the
+    tiles split into TF32 parts (``tf32_split``), p_hi S_hi summed apart
+    from p_hi S_lo + p_lo S_hi and the two sums added last, on the dense
+    matrices of the form's tiles (their zeros add exact zeros)."""
+    ng, pairs, _ = form.val.shape
+    if split:
+        hi, lo = tf32_split(tile_dense(form, pad))
+
+        def apply_split(p):
+            p_hi, p_lo = tf32_split(p.reshape(ng, -1, pad))
+            big = torch.bmm(p_hi, hi)
+            small = torch.bmm(p_hi, lo) + torch.bmm(p_lo, hi)
+            return (big + small).reshape(p.shape)
+
+        return apply_split
+    mats = tile_matrices(form)
+    kt = form.kt.long()[:, None, :, None]
+    it = form.it.long()[:, None, :, None]
+
+    def apply_S(p):
+        pg = p.reshape(ng, -1, p.shape[1] // TILE, TILE)
+        c = pg.shape[1]
+        a = torch.gather(pg, 2, kt.expand(ng, c, pairs, TILE))  # [g, c, pair, k]
+        prod = torch.einsum("gcjk,gjki->gcji", a, mats)
+        return torch.zeros_like(pg).scatter_add_(2, it.expand(ng, c, pairs, TILE),
+                                                 prod).reshape(p.shape)
+
+    return apply_S
+
+
 def _sparse_apply(form: SparseS):
     """``p -> p @ S`` through the form's CSC arrays (gather, then add into
     each entry's column); ``p``'s rows run in ``ngroups`` equal runs, one per
@@ -254,6 +503,7 @@ def _sparse_apply(form: SparseS):
 def wave_cycle_plain(
     params, F: torch.Tensor, G: torch.Tensor, wh_maxit: int = WH_MAXIT,
     s_group_size: int | None = None, sparse: SparseS | None = None,
+    tiles: TileS | None = None, split: bool = False,
 ):
     """Plain PyTorch WaveHoltz cycle (the JAX package's ``_wave_cycle_xla``).
 
@@ -261,9 +511,12 @@ def wave_cycle_plain(
     float scalars ``dt`` and ``K0``.  ``S`` is (pad, pad) shared, or a 3-D
     stack: with ``s_group_size`` rows run in groups of that many against one
     matrix each, without it every row has its own.  With ``sparse`` (the
-    ``sparse_form`` of S) S is applied through that form's CSC arrays in
-    place of the dense product.  Returns the filtered (u, v), each shaped
-    like ``F``.
+    ``sparse_form`` of S) S is applied through that form's CSC arrays, with
+    ``tiles`` (its ``tile_form``) through its non-zero 8 x 8 tiles, in place
+    of the dense product.  ``split`` (with ``tiles``, float32 only) applies
+    the CPU model of the tensor-core kernel's 3-pass TF32 split
+    (``_tile_apply``), for the tests; no solver path passes it.  Returns
+    the filtered (u, v), each shaped like ``F``.
     """
     S, Ha, mi = params.S, params.Ha, params.inv_mi
     dt = params.dt
@@ -272,8 +525,17 @@ def wave_cycle_plain(
 
     if S.dim() == 3 and s_group_size is not None:
         _check_groups(S.shape[0], s_group_size, F.shape[0])
-    if sparse is not None:
-        if sparse.ptr.shape[0] != (1 if S.dim() == 2 else S.shape[0]):
+    ngroups = 1 if S.dim() == 2 else S.shape[0]
+    if split and tiles is None:
+        raise ValueError("wave_cycle: the split model runs through a tile form (tiles=)")
+    if tiles is not None:
+        if tiles.ptr.shape[0] != ngroups:
+            raise ValueError(
+                f"wave_cycle: tile form of {tiles.ptr.shape[0]} groups for S {tuple(S.shape)}"
+            )
+        apply_S = _tile_apply(tiles, S.shape[-1], split)
+    elif sparse is not None:
+        if sparse.ptr.shape[0] != ngroups:
             raise ValueError(
                 f"wave_cycle: sparse form of {sparse.ptr.shape[0]} groups for S {tuple(S.shape)}"
             )
@@ -379,8 +641,18 @@ def _library(variant: str) -> ctypes.CDLL:
 
     fn("error_string", [i32], ctypes.c_char_p)
     rows = fn("rows_per_block", [], i32)()
-    if variant == "sparse":
+    if variant == "mma":
         fn("launch", [ptr] * 4 + [i32] + [ptr] * 7 + [i32] * 5 + [f32, f32, i32, ptr], i32)
+        fn("blocks_per_sm", [i32] * 3 + [ptr], i32)
+        smem = fn("shared_memory_bytes", [i32] * 2, ctypes.c_longlong)
+        slots, warps = fn("slots", [i32], i32), fn("warps", [i32], i32)
+        same = (fn("max_pad", [], i32)() == MMA_MAX_PAD and rows == MMA_ROWS_PER_BLOCK
+                and smem(320, 489) == mma_shared_memory_bytes(320, 489)
+                and all((slots(pad), warps(pad)) == mma_layout(pad)
+                        for pad in range(TILE, MMA_MAX_PAD + 1, TILE)))
+    elif variant == "sparse":
+        fn("launch", [ptr] * 4 + [i32] + [ptr] * 7 + [i32] * 5 + [f32, f32, i32, ptr], i32)
+        fn("registers", [i32, i32], i32)
         fn("per_row_launch", [ptr] * 4 + [i32] + [ptr] * 7 + [i32] * 4 + [f32, f32, i32, ptr],
            i32)
         fn("blocks_per_sm", [i32] * 4, i32)
@@ -450,31 +722,59 @@ def _check_form(form: SparseS, ngroups: int, pad: int, device: torch.device) -> 
             )
 
 
+def _check_tiles(form: TileS, ngroups: int, pad: int, device: torch.device) -> None:
+    slots, warps = mma_layout(pad)
+    pairs = form.pairs
+    expect = {
+        "val": (form.val, torch.float32, (ngroups, pairs, TILE * TILE)),
+        "kt": (form.kt, torch.int16, (ngroups, pairs)),
+        "it": (form.it, torch.int16, (ngroups, pairs)),
+        "ptr": (form.ptr, torch.int32, (ngroups, warps * slots + 1)),
+        "col": (form.col, torch.int16, (ngroups, warps * slots)),
+    }
+    for name, (t, dtype, shape) in expect.items():
+        if t.device != device or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(
+                f"wave_cycle: tile {name} must be a contiguous {dtype} tensor on {device}, "
+                f"got {t.dtype} on {t.device} (contiguous={t.is_contiguous()})"
+            )
+        if tuple(t.shape) != shape:
+            raise ValueError(
+                f"wave_cycle: tile {name} has shape {tuple(t.shape)}, expected {shape}"
+            )
+
+
 def wave_cycle(
     params, F: torch.Tensor, G: torch.Tensor, wh_maxit: int = WH_MAXIT,
     s_group_size: int | None = None, *, variant: str | None = None,
-    sparse: SparseS | None = None,
+    sparse: SparseS | None = None, tiles: TileS | None = None,
 ):
     """Run the WaveHoltz cycle; returns (u, v) shaped like ``F``.
 
     On the CPU this is ``wave_cycle_plain`` with the dense S.  On a CUDA
     device it is one launch of the kernel ``kernel_variant`` names for the
-    pad and the non-zeros of S: the sparse kernel wherever S's
-    ``sparse_form`` fits in shared memory beside the row state (every
-    configuration of the repo), else a dense one.  ``sparse`` is that form,
-    prebuilt by the caller for its S (built here when it is None and the
-    sparse kernel may run).  ``variant`` (``"sparse"``, ``"resident"``,
-    ``"streamed"``) forces a kernel, to hold them against each other.
-    A 3-D ``S`` with ``s_group_size`` is layout (b): the runs must be a
-    multiple of ``ROWS_PER_BLOCK`` rows.  A 3-D ``S`` without it holds one
-    matrix per row (layout (c)): the sparse kernel runs it in its per-row
-    instance, each row once; a dense kernel takes each row
-    ``ROWS_PER_BLOCK`` times in layout (b) and the result is read back once
-    (``cycle_route``).  Launches are counted in ``wave_cycle.launches``
-    under the route's key: ``"shared"`` (a), ``"grouped"`` (b, and (c) on a
-    dense kernel) with a ``"sparse_"`` or ``"streamed_"`` prefix for those
-    kernels, and ``"sparse_per_row"`` (c).  Anything else raises; nothing
-    falls back.
+    pad and the tiles or non-zeros of S: the tensor-core kernel in layouts
+    (a) and (b) where the card measured it faster (``mma_preferred``: pad
+    <= 192 and dense tiles, decided from ``tiles.pairs`` or, with neither
+    form given, from ``tile_pairs(S)``), else the sparse kernel wherever
+    S's ``sparse_form`` fits (the per-row layout (c) always), else a dense
+    one.  ``tiles`` and ``sparse`` are S's ``tile_form`` and
+    ``sparse_form``, prebuilt by the caller (built here, only for the
+    kernel that runs, when None); a caller that hands ``sparse`` alone has
+    applied the rule (``default_variant``, as ``DDH`` does) and gets the
+    sparse kernel.
+    ``variant`` (``"mma"``, ``"sparse"``, ``"resident"``, ``"streamed"``)
+    forces a kernel, to hold them against each other.  A 3-D ``S`` with
+    ``s_group_size`` is layout (b): the runs must be a multiple of
+    ``ROWS_PER_BLOCK`` rows.  A 3-D ``S`` without it holds one matrix per
+    row (layout (c)): the sparse kernel runs it in its per-row instance,
+    each row once; a dense kernel takes each row ``ROWS_PER_BLOCK`` times
+    in layout (b) and the result is read back once (``cycle_route``).
+    Launches are counted in ``wave_cycle.launches`` under the route's key:
+    ``"shared"`` (a), ``"grouped"`` (b, and (c) on a dense kernel) with an
+    ``"mma_"``, ``"sparse_"`` or ``"streamed_"`` prefix for those kernels,
+    and ``"sparse_per_row"`` (c).  Anything else raises; nothing falls
+    back.
     """
     if F.device.type == "cpu":
         return wave_cycle_plain(params, F, G, wh_maxit, s_group_size)
@@ -486,12 +786,21 @@ def wave_cycle(
     _check_operands(params, F, G)
     ndom, pad = F.shape
     dev = F.device.index
-    form = None
-    if variant in (None, "sparse"):
+    limit = _shared_memory_limit(dev)
+    prefer = False
+    if (variant is None and not per_row and pad <= MMA_PREFERRED_MAX_PAD
+            and (tiles is not None or sparse is None)):
+        pairs = tile_pairs(S) if tiles is None else tiles.pairs
+        prefer = mma_preferred(pad, pairs) and mma_shared_memory_bytes(pad, pairs) <= limit
+    tform = form = None
+    if (variant == "mma" or prefer) and not per_row and pad <= MMA_MAX_PAD:
+        tform = tile_form(S) if tiles is None else tiles
+        _check_tiles(tform, ngroups or 1, pad, F.device)
+    if variant == "sparse" or (variant is None and not prefer):
         form = sparse_form(S) if sparse is None else sparse
         _check_form(form, ngroups or 1, pad, F.device)
-    variant = kernel_variant(pad, _shared_memory_limit(dev),
-                             None if form is None else form.stride, variant, per_row)
+    variant = kernel_variant(pad, limit, None if form is None else form.stride, variant,
+                             per_row, None if tform is None else tform.pairs)
     route = cycle_route(variant, ndom, ngroups, s_group_size)
     if route.tile > 1:
         r = route.tile
@@ -511,7 +820,10 @@ def wave_cycle(
         ndom, pad, params.tables.shape[0], wh_maxit,
     )
     tail = (params.dt, params.K0, dev, torch.cuda.current_stream(F.device).cuda_stream)
-    if variant == "sparse":
+    if variant == "mma":
+        head = (tform.val.data_ptr(), tform.kt.data_ptr(), tform.ptr.data_ptr(),
+                tform.col.data_ptr(), tform.pairs)
+    elif variant == "sparse":
         head = (form.ptr.data_ptr(), form.idx.data_ptr(), form.val.data_ptr(),
                 form.order.data_ptr(), form.stride)
     else:
@@ -535,10 +847,17 @@ def _shared_memory_limit(dev: int) -> int:
     return limit
 
 
-def default_variant(pad: int, form: SparseS, device: torch.device) -> str:
-    """The kernel ``wave_cycle`` runs by default at ``pad`` with the sparse
-    form ``form`` on the CUDA ``device`` (``kernel_variant``)."""
-    return kernel_variant(pad, _shared_memory_limit(device.index), form.stride)
+def default_variant(S: torch.Tensor, index: torch.Tensor | None = None) -> str:
+    """The K1 kernel ``wave_cycle`` runs by default on the card for a
+    layout-(a) or (b) cycle on ``S`` ((pad, pad), or (ngroups, pad, pad) of
+    which the cycle reads the groups ``index``, None: all), where its
+    sparse form fits (every configuration of the repo): ``"mma"`` where
+    ``mma_preferred`` holds for ``tile_pairs``, else ``"sparse"``.  Callers
+    hand the wrapper only that kernel's form."""
+    pad = S.shape[-1]
+    if pad > MMA_PREFERRED_MAX_PAD or pad % TILE:
+        return "sparse"
+    return "mma" if mma_preferred(pad, tile_pairs(S, index)) else "sparse"
 
 
 def reset_launches() -> None:
@@ -557,7 +876,31 @@ def sparse_blocks_per_sm(pad: int, stride: int, per_row: bool, device: torch.dev
     return blocks
 
 
+def kernel_occupancy(variant: str, pad: int, form, device: torch.device,
+                     per_row: bool = False) -> dict:
+    """Registers a thread, warps and dynamic shared memory a block and blocks
+    per SM of the ``"mma"`` kernel for the tile form ``form`` or of the
+    ``"sparse"`` one for the sparse form ``form`` (``per_row``: its per-row
+    instance) at ``pad`` on the CUDA ``device``."""
+    if variant == "mma":
+        regs = ctypes.c_int(0)
+        blocks = _library("mma").wave_cycle_mma_blocks_per_sm(pad, form.pairs, device.index,
+                                                               ctypes.byref(regs))
+        out = {"registers": regs.value, "warps": mma_layout(pad)[1],
+               "shared_memory_bytes": mma_shared_memory_bytes(pad, form.pairs)}
+    else:
+        rows = 1 if per_row else SPARSE_ROWS_PER_BLOCK
+        blocks = sparse_blocks_per_sm(pad, form.stride, per_row, device)
+        out = {"registers": _library("sparse").wave_cycle_sparse_registers(rows, device.index),
+               "warps": (pad + 31) // 32,
+               "shared_memory_bytes": sparse_shared_memory_bytes(pad, form.stride, rows)}
+    if blocks < 0 or out["registers"] <= 0:
+        raise RuntimeError(f"wave_cycle: cannot read the {variant} kernel's occupancy on {device}")
+    return {**out, "blocks_per_sm": blocks}
+
+
 wave_cycle.launches = {
     "shared": 0, "grouped": 0, "streamed_shared": 0, "streamed_grouped": 0,
     "sparse_shared": 0, "sparse_grouped": 0, "sparse_per_row": 0,
+    "mma_shared": 0, "mma_grouped": 0,
 }

@@ -258,8 +258,8 @@ class ShardedDDH:
         self.wh_maxit = ddh.wh_maxit
         self.pf = p.Hf.shape[1]
         self._form = None
-        if p.S.dim() == 2 and p.S.is_cuda:
-            self._form = ddh.S_sparse  # a shared S: the operator's own form
+        # a shared S: the operator's own forms
+        self._shared = ddh if p.S.dim() == 2 and p.S.is_cuda else None
 
         self.use_transfer = ddh.use_transfer
         self.T = slab(ddh.T) if ddh.use_transfer else None
@@ -293,14 +293,17 @@ class ShardedDDH:
     # ----------------------------------------------------------- helpers
 
     def _cycle(self, params: DDHParams, F, G, wh_maxit: int):
-        """The wave cycle on the rank's rows; on the card with the sparse
-        form of the rank's S (built once)."""
-        form = None
-        if F.is_cuda:
-            if self._form is None:
-                self._form = sparse_form(params.S)
-            form = self._form
-        return wave_cycle(params, F, G, wh_maxit, sparse=form)
+        """The wave cycle on the rank's rows; on the card with the
+        operator's form of a shared S for the kernel the dispatch picks
+        (``DDH.shared_forms``), or the sparse form of the rank's per-row S
+        (built once)."""
+        if not F.is_cuda:
+            return wave_cycle(params, F, G, wh_maxit)
+        if self._shared is not None:
+            return wave_cycle(params, F, G, wh_maxit, **self._shared.shared_forms())
+        if self._form is None:
+            self._form = sparse_form(params.S)
+        return wave_cycle(params, F, G, wh_maxit, sparse=self._form)
 
     def _local_lam(self, lam: torch.Tensor) -> torch.Tensor:
         """The rank's rows of the own-slot traces of ``lam`` (K, 2 n_lambda)

@@ -30,10 +30,13 @@ plane-wave coarse correction of ``solvers/coarse.py``.
 
 The port pads a subdomain to a multiple of ``PAD_MULTIPLE`` = 8 DOFs (169 ->
 176 at the flagship, 625 -> 632 with 32-DOF blocks) instead of the JAX
-package's 128.  On the card the operator builds the exact non-zeros of its
-S once (``S_sparse``) and hands them to every wave cycle; the wave-cycle
-wrapper runs the sparse kernel with them in shared memory wherever they
-fit.
+package's 128.  On the card each wave cycle runs the kernel the wrapper's
+rule picks for S (``default_variant``): the tensor-core kernel where S's
+non-zero 8 x 8 tiles are dense at pad <= 192 (the unstructured square),
+with those tiles (``S_tiles``), else the sparse kernel with S's exact
+non-zeros (``S_sparse``: the flagship, pad 320 and 632, and the per-row
+layout (c)).  The operator decides once, builds only that kernel's form,
+on the first cycle that needs it, and hands it to every later one.
 """
 
 from __future__ import annotations
@@ -53,8 +56,10 @@ from ..ops.cuda.wave_cycle import (
     ROWS_PER_BLOCK,
     WH_MAXIT,
     SparseS,
+    TileS,
     default_variant,
     sparse_form,
+    tile_form,
     wave_cycle,
 )
 from ..ops.mass import assembly_table, lumped_mass_diagonal
@@ -530,6 +535,9 @@ class DDH(nn.Module):
             self.register_buffer(name, t)
         self._S_sparse: SparseS | None = None
         self.sparse_seconds: float | None = None  # build time of S_sparse
+        self._S_tiles: TileS | None = None
+        self.tiles_seconds: float | None = None  # build time of S_tiles
+        self._k1: str | None = None  # the K1 kernel of a shared S (shared_forms)
         # K0, dt and omega rounded to the compute dtype, as the JAX package's
         # dtype scalars
         self._np_dtype = torch.empty((), dtype=dtype).numpy().dtype
@@ -557,6 +565,18 @@ class DDH(nn.Module):
             _sync(self.S.device)
             self.sparse_seconds = time.perf_counter() - t0
         return self._S_sparse
+
+    @property
+    def S_tiles(self) -> TileS:
+        """The non-zero 8 x 8 tiles of S (``tile_form``), the form the
+        tensor-core kernel reads: built on first use and kept for every
+        later cycle on this operator."""
+        if self._S_tiles is None:
+            t0 = time.perf_counter()
+            self._S_tiles = tile_form(self.S)
+            _sync(self.S.device)
+            self.tiles_seconds = time.perf_counter() - t0
+        return self._S_tiles
 
     @property
     def size(self) -> int:
@@ -630,10 +650,25 @@ class DDH(nn.Module):
         )
 
     def _cycle(self, params: DDHParams, F, G, wh_maxit: int):
-        """The wave cycle on this operator's S; on the card with its sparse
-        form (the CPU runs the plain cycle, which does not read it)."""
-        form = self._cycle_form(params, F.shape[0]) if F.is_cuda else None
-        return wave_cycle(params, F, G, wh_maxit, sparse=form)
+        """The wave cycle on this operator's S; on the card with the form of
+        the kernel the dispatch picks for a shared S (``_forms``), or the
+        sparse form of a per-domain S, one per row (the sparse kernel's
+        per-row instance).  The CPU runs the plain cycle, which reads
+        neither."""
+        if not F.is_cuda:
+            return wave_cycle(params, F, G, wh_maxit)
+        if params.S.dim() == 2:
+            return wave_cycle(params, F, G, wh_maxit, **self.shared_forms())
+        return wave_cycle(params, F, G, wh_maxit, sparse=self._cycle_form(params, F.shape[0]))
+
+    def shared_forms(self) -> dict:
+        """The keyword handing a cycle on this operator's shared S the form
+        of the kernel the dispatch picks for it (``default_variant``, decided
+        once): ``tiles=S_tiles`` or ``sparse=S_sparse``, built on first use;
+        the other form is not built."""
+        if self._k1 is None:
+            self._k1 = default_variant(self.S)
+        return {"tiles": self.S_tiles} if self._k1 == "mma" else {"sparse": self.S_sparse}
 
     def _cycle_form(self, params: DDHParams, rows: int) -> SparseS:
         """The sparse form of ``params.S`` for a cycle of ``rows`` rows: K
@@ -688,9 +723,14 @@ class DDH(nn.Module):
         Ha_u, mi_u = self.Ha[ui], self.inv_mi[ui]
         grouped = p.S.dim() == 3
         S_u = p.S[ui].contiguous() if grouped else p.S
-        sparse_u = None
-        if dev.type == "cuda":
-            sparse_u = self.S_sparse.take(ui) if grouped else self.S_sparse
+        forms = {}
+        if dev.type == "cuda" and grouped:
+            # the form of the kernel the dispatch picks for the unique matrices
+            forms = ({"tiles": self.S_tiles.take(ui)} if default_variant(p.S, ui) == "mma"
+                     else {"sparse": self.S_sparse.take(ui)})
+        elif dev.type == "cuda":
+            forms = self.shared_forms()
+
         chunk = max(1, min(ncols, PROBE_STATE_ELEMS // (nu * pad)))
         if grouped:
             chunk = max(ROWS_PER_BLOCK, chunk // ROWS_PER_BLOCK * ROWS_PER_BLOCK)
@@ -709,7 +749,7 @@ class DDH(nn.Module):
                     inv_mi=mi_u.repeat_interleave(c8, dim=0),
                 )
                 u, v = wave_cycle(pc, fg[0], fg[1], self.wh_maxit, s_group_size=c8,
-                                  sparse=sparse_u)
+                                  **forms)
                 u = u.reshape(nu, c8, pad)[:, :c].transpose(0, 1)
                 v = v.reshape(nu, c8, pad)[:, :c].transpose(0, 1)
             else:
@@ -717,7 +757,7 @@ class DDH(nn.Module):
                 fg = fg.reshape(2, c * nu, pad)
                 pc = p._replace(Ha=Ha_u.repeat(c, 1), inv_mi=mi_u.repeat(c, 1))
                 rows += nu * c
-                u, v = wave_cycle(pc, fg[0], fg[1], self.wh_maxit, sparse=sparse_u)
+                u, v = wave_cycle(pc, fg[0], fg[1], self.wh_maxit, **forms)
                 u, v = u.reshape(c, nu, pad), v.reshape(c, nu, pad)
             us.append(u)
             vs.append(v / p.omega)
@@ -849,7 +889,8 @@ class DDH(nn.Module):
         """The JAX package's key parts from the port's host staging arrays,
         in float32 (the compute dtype) and int32, plus the cache format
         version and a backend tag: ``torch``, the device type and the cycle
-        that runs the probes (the kernel the card dispatches to, or the
+        that runs the probes (the K1 kernel the dispatch picks for the
+        unique subdomains' S, decided before either form is built, or the
         plain cycle on the CPU).  Probes of different cycles differ at fp32
         round-off, so an entry of the JAX package or of another device is
         never loaded."""
@@ -863,7 +904,11 @@ class DDH(nn.Module):
         for arr in (self._fslot_np, self._B0_np, self._B1_np):
             h.update(np.ascontiguousarray(arr, dtype=np.int32).tobytes())
         dev = self.gmask.device
-        cycle = "plain" if dev.type == "cpu" else default_variant(self.pad, self.S_sparse, dev)
+        cycle = "plain"
+        if dev.type == "cuda":
+            uidx, _, _ = self._domain_groups()
+            cycle = default_variant(self.S, None if self.S.dim() == 2
+                                    else torch.as_tensor(uidx, device=dev))
         h.update(repr((
             CACHE_FORMAT_VERSION, "torch", dev.type, cycle, self.wh_maxit, self.pad,
             self.n_own, self.n_lost, self.nt, float(self.omega), float(self.dt),

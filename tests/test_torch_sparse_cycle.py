@@ -203,14 +203,20 @@ def test_per_row_instance_needs_less_shared_memory(config):
 def test_route_of_each_layout(variant):
     """(a) and (b) run the caller's rows; (c) runs each row once in the
     sparse kernel's per-row instance, and ROWS_PER_BLOCK times in layout
-    (b) on a dense kernel, whose blocks need runs of that many rows."""
-    prefix = {"sparse": "sparse_", "resident": "", "streamed": "streamed_"}[variant]
+    (b) on a dense kernel, whose blocks need runs of that many rows; the
+    tensor-core kernel does not take (c)."""
+    prefix = {"mma": "mma_", "sparse": "sparse_", "resident": "",
+              "streamed": "streamed_"}[variant]
     assert wc.cycle_route(variant, 1024, None) == wc.Route(prefix + "shared", 1024, 1, 1, 0)
     assert wc.cycle_route(variant, 960, 8, 120) == wc.Route(prefix + "grouped", 960, 8, 1, 120)
     r = wc.ROWS_PER_BLOCK
-    want = (wc.Route("sparse_per_row", 1024, 1024, 1, 1) if variant == "sparse"
-            else wc.Route(prefix + "grouped", r * 1024, 1024, r, r))
-    assert wc.cycle_route(variant, 1024, 1024) == want
+    if variant == "mma":
+        with pytest.raises(ValueError, match="per-row stack"):
+            wc.cycle_route(variant, 1024, 1024)
+    else:
+        want = (wc.Route("sparse_per_row", 1024, 1024, 1, 1) if variant == "sparse"
+                else wc.Route(prefix + "grouped", r * 1024, 1024, r, r))
+        assert wc.cycle_route(variant, 1024, 1024) == want
     with pytest.raises(ValueError, match="per-row stack of 8 matrices for 16 rows"):
         wc.cycle_route(variant, 16, 8)
     with pytest.raises(ValueError, match="multiple of 8"):
