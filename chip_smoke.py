@@ -230,6 +230,14 @@ import time
 import numpy as np
 
 
+def _reset_launches() -> None:
+    """Set the kernel launch counters (``k1.launches.*``) to 0."""
+    from cuddhelmholtz_tpu_torch.ops.cuda.wave_cycle import LAUNCHES
+    from cuddhelmholtz_tpu_torch.utils import spans
+
+    spans.reset(LAUNCHES)
+
+
 def _fail(msg: str) -> None:
     raise RuntimeError(f"chip_smoke: {msg}")
 
@@ -536,21 +544,21 @@ def _transfer_run(wc, run, what, max_restarts, jax_matvecs, matvec_slack, gm,
     from cuddhelmholtz_tpu_torch.examples.drivers import point_sources
     from cuddhelmholtz_tpu_torch.models.helmholtz import helmholtz_rhs
 
-    wc.reset_launches()
+    _reset_launches()
     res = run()
-    launches = dict(wc.wave_cycle.launches)
+    launches = wc.launch_counts()
     ddh = res.extra["ddh"]
     pre = res.extra["precompute"]
     omega = res.extra["omega"]
     b = helmholtz_rhs(ddh.space, lambda xy: point_sources(xy, omega)).to(ddh.gmask.device)
     # the same solve again on the prepared operator: it must launch no kernel
-    wc.reset_launches()
+    _reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out2, _ = ddh.solver(gm.m, gm.maxit, gm.tol)(b)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    solve_launches = sum(wc.wave_cycle.launches.values())
+    solve_launches = sum(wc.launch_counts().values())
     print(f"{what}: success={res.success} restarts={res.num_iter} matvecs={res.num_matvec} "
           f"solve {res.seconds:.3f} s (again: {warm_s:.3f} s, {out2.num_iter} restarts / "
           f"{out2.num_matvec} matvecs), io path {ddh.io_path}, "
@@ -587,12 +595,12 @@ def _cache_pair(wc, run, what, cache_dir):
     its launches)."""
     import torch
 
-    wc.reset_launches()
+    _reset_launches()
     cold = run()
-    l_cold = dict(wc.wave_cycle.launches)
-    wc.reset_launches()
+    l_cold = wc.launch_counts()
+    _reset_launches()
     warm = run()
-    n_warm = sum(wc.wave_cycle.launches.values())
+    n_warm = sum(wc.launch_counts().values())
     pc, pw = cold.extra["precompute"], warm.extra["precompute"]
     cd, wd = cold.extra["ddh"], warm.extra["ddh"]
     same = {
@@ -633,20 +641,20 @@ def _level_run(wc, run, what, max_restarts, coarse, gm):
     from cuddhelmholtz_tpu_torch.examples.drivers import point_sources
     from cuddhelmholtz_tpu_torch.models.helmholtz import helmholtz_rhs
 
-    wc.reset_launches()
+    _reset_launches()
     res = run()
-    launches = dict(wc.wave_cycle.launches)
+    launches = wc.launch_counts()
     ddh, pre = res.extra["ddh"], res.extra["precompute"]
     b = helmholtz_rhs(ddh.space, lambda xy: point_sources(xy, res.extra["omega"]))
     b = b.to(ddh.gmask.device)
     solve = ddh.solver(gm.m, gm.maxit, gm.tol, coarse=coarse)
-    wc.reset_launches()
+    _reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out2, U2 = solve(b)
     torch.cuda.synchronize()
     again_s = time.perf_counter() - t0
-    again = sum(wc.wave_cycle.launches.values())
+    again = sum(wc.launch_counts().values())
     bitwise = (torch.equal(out2.x, res.extra["lam"])
                and np.array_equal(out2.res_norm[: out2.n_hist].cpu().numpy(), res.res_norm)
                and np.array_equal(U2.cpu().numpy(), res.solution))
@@ -706,17 +714,17 @@ def _composite_run(wc, run, what, max_restarts, fem, dev):
     )
     from cuddhelmholtz_tpu_torch.spaces.h1 import FaceSpace, H1Space
 
-    wc.reset_launches()
+    _reset_launches()
     res = run()
-    launches = dict(wc.wave_cycle.launches)
+    launches = wc.launch_counts()
     ex = res.extra
     pre = ex["precompute"]
     P = ex["precond"]
     n2 = 2 * ex["ndof"]
     v = torch.from_numpy(np.random.default_rng(3).standard_normal(n2)).to(dev)
-    wc.reset_launches()
+    _reset_launches()
     p_ms = _ms_per_call(lambda: P(v), dev)
-    p_launches = sum(wc.wave_cycle.launches.values())
+    p_launches = sum(wc.launch_counts().values())
     p_repeats = [bool(torch.equal(P(v), P(v))) for _ in range(2)]
     first = ex["first_run"]
     same_hist = first["res_norm"] == list(res.res_norm)
@@ -845,7 +853,7 @@ def _fwi_run(wc, dev, nx: int = 128, deg: int = 3) -> tuple[dict, dict]:
     v = torch.as_tensor(v / np.linalg.norm(v), device=dev)
     tmpl = make_helmholtz_template(fem, fs, device=dev)
 
-    wc.reset_launches()
+    _reset_launches()
     t0 = time.perf_counter()
     ddh = DDH(omega, np.ones(n), fem, nx=nx, ny=nx, device=dev)
     pstats = ddh.prepare(cache_dir="", want_io=True)
@@ -927,7 +935,7 @@ def _fwi_run(wc, dev, nx: int = 128, deg: int = 3) -> tuple[dict, dict]:
     inv_s = time.perf_counter() - t
     for i, entry in enumerate(solves[n0:]):
         entry["what"] = f"invert step {i // 2 + 1} {('forward', 'adjoint')[i % 2]}"
-    launches = dict(wc.wave_cycle.launches)
+    launches = wc.launch_counts()
     hist = hist.cpu().numpy()
     summary = {
         "nx": nx, "ndof": n, "unknowns": 2 * n, "omega": omega, "n_domains": ddh.n_domains,
@@ -1062,7 +1070,7 @@ def _module_run(module: str, args: list[str], what: str) -> tuple[list[str], dic
         "except SystemExit as e:",
         "    if e.code not in (0, None):",
         "        raise",
-        "print('LAUNCHES ' + json.dumps(wc.wave_cycle.launches), file=sys.stderr)",
+        "print('LAUNCHES ' + json.dumps(wc.launch_counts()), file=sys.stderr)",
     ])
     root = os.path.dirname(os.path.abspath(__file__))
     p = subprocess.run([sys.executable, "-c", code, *args], capture_output=True, text=True,
@@ -1202,21 +1210,21 @@ def _l4_run(wc, dev, rng, shapes) -> tuple[dict, dict, dict]:
         _fail(f"L4: omega {omega}, JAX {L4_OMEGA_JAX}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    wc.reset_launches()
+    _reset_launches()
     res = lu.solve_case(l4, L4_DOMAINS, 3, omega, 1e-4, device=dev)
-    launches = dict(wc.wave_cycle.launches)
+    launches = wc.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     rec = lu.case_record("unstructured_L4", l4, res)
     rec.update(topology_seconds=topo, peak_memory_bytes=peak)
     ddh = res.extra["ddh"]
     b = helmholtz_rhs(ddh.space, lambda xy: point_sources(xy, omega)).to(dev)
-    wc.reset_launches()
+    _reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out2, U2 = ddh.solver(20, 100, 1e-4)(b)
     torch.cuda.synchronize()
     again_s = time.perf_counter() - t0
-    again = dict(wc.wave_cycle.launches)
+    again = wc.launch_counts()
     bitwise = (torch.equal(out2.x, res.extra["lam"])
                and np.array_equal(U2.cpu().numpy(), res.solution))
     resid = _plain_residual(wc, ddh, b, res.extra["lam"])
@@ -1380,7 +1388,7 @@ def _phases_28_to_32(wc, dev, rng, counts5, ms18, bench20, lomega, total, shapes
     a_nodal = apply_diag_inv_mass(make_diag_inv_mass_op(fem, device="cpu"),
                                   linear_functional(fem, wave_speed_coeff)).numpy()
     b = helmholtz_rhs(fem, lambda xy: point_sources(xy, cfg.omega)).to(dev)
-    wc.reset_launches()
+    _reset_launches()
     mddh = DDH(cfg.omega, a_nodal, fem, nx=cfg.nx, ny=cfg.nx, rhs_split="mass", device=dev)
     mddh.prepare(cache_dir="")
     torch.cuda.synchronize()
@@ -1388,7 +1396,7 @@ def _phases_28_to_32(wc, dev, rng, counts5, ms18, bench20, lomega, total, shapes
     out, U = mddh.solver(cfg.gmres.m, cfg.gmres.maxit, cfg.gmres.tol)(b)
     torch.cuda.synchronize()
     mass_s = time.perf_counter() - t0
-    launches = dict(wc.wave_cycle.launches)
+    launches = wc.launch_counts()
     resid = _plain_residual(wc, mddh, b, out.x)
     print(f"flagship transfer solve, rhs_split='mass': success={out.success} "
           f"{out.num_iter} / {out.num_matvec} (the full split: {counts5}), solve {mass_s:.3f} s, "
@@ -1423,12 +1431,12 @@ def _phases_28_to_32(wc, dev, rng, counts5, ms18, bench20, lomega, total, shapes
     rdv = tempfile.mkdtemp(prefix="cuddh_rdv_")
     initialize_from_env(f"file://{rdv}/store", 1, 0, device="cuda")
     try:
-        wc.reset_launches()
+        _reset_launches()
         g = mcfg.gmres
         res = run_ddh_multi_source(nx=mcfg.nx, deg=mcfg.deg, m=g.m, maxit=g.maxit, tol=g.tol,
                                    n_sources=mcfg.n_sources, transfer=mcfg.transfer,
                                    shard_sources=True, device=dev)
-        launches = dict(wc.wave_cycle.launches)
+        launches = wc.launch_counts()
     finally:
         dist.destroy_process_group()
         shutil.rmtree(rdv, ignore_errors=True)
@@ -1588,11 +1596,11 @@ def main() -> int:
     del p384, F384, G384, m384
 
     # --- 3. the flagship solve, direct path ------------------------------------
-    wc.reset_launches()
+    _reset_launches()
     res = run_ddh(nx=nx, deg=deg, m=cfg.gmres.m, maxit=cfg.gmres.maxit, tol=cfg.gmres.tol,
                   wh_maxit=cfg.wh_maxit, block_size=cfg.block_size, transfer=False,
                   device=dev)
-    launches = dict(wc.wave_cycle.launches)
+    launches = wc.launch_counts()
     print(f"flagship solve: success={res.success} restarts={res.num_iter} "
           f"matvecs={res.num_matvec} launches={launches} solve {res.seconds:.3f} s "
           f"({1e3 * res.seconds / (res.num_matvec + 2):.3f} ms per cycle incl. GMRES) "
@@ -1902,10 +1910,10 @@ def main() -> int:
     del op32, op64, c12, c13
 
     # --- 16. large_unstructured L3 --composite ---------------------------------
-    wc.reset_launches()
+    _reset_launches()
     rec = lu.run_case("unstructured_L3", lmesh, 256, 3, lomega, ucfg.gmres.tol,
                       composite=True, device=dev)
-    launches = dict(wc.wave_cycle.launches)
+    launches = wc.launch_counts()
     comp = rec["composite"]
     print(f"large_unstructured L3 --composite: lambda-solve {rec['restarts']} / "
           f"{rec['matvecs']} in {rec['solve_seconds']:.3f} s (prepare "
@@ -1971,20 +1979,20 @@ def main() -> int:
     from cuddhelmholtz_tpu_torch.bench import HEADLINE_GMRES
 
     t18 = time.perf_counter()
-    wc.reset_launches()
+    _reset_launches()
     res18 = run_config(mcfg, device=dev)
-    launches = dict(wc.wave_cycle.launches)
+    launches = wc.launch_counts()
     mddh = res18.extra["ddh"]
     bs = res18.extra["rhs"]
     K, gm18 = res18.extra["n_sources"], mcfg.gmres
     block_opts = {"reorth": False}
-    wc.reset_launches()
+    _reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out18, _ = mddh.solver(gm18.m, gm18.maxit, gm18.tol, gmres_opts=block_opts, block=True)(bs)
     torch.cuda.synchronize()
     warm18 = time.perf_counter() - t0
-    again = sum(wc.wave_cycle.launches.values())
+    again = sum(wc.launch_counts().values())
     # matched mode: the same sources one at a time, the block solve's GMRES options
     solo = mddh.solver(gm18.m, gm18.maxit, gm18.tol, gmres_opts=block_opts)
     solo(bs[0])
@@ -2041,12 +2049,12 @@ def main() -> int:
 
     t19 = time.perf_counter()
     small = dict(nx=64, n_sources=4, m=20, maxit=100, tol=1e-4, transfer=False, device=dev)
-    wc.reset_launches()
+    _reset_launches()
     rb = run_ddh_multi_source(method="block", **small)
-    lb = dict(wc.wave_cycle.launches)
-    wc.reset_launches()
+    lb = wc.launch_counts()
+    _reset_launches()
     rv = run_ddh_multi_source(method="vmap", **small)
-    lv = dict(wc.wave_cycle.launches)
+    lv = wc.launch_counts()
     vddh, vbs, K19 = rv.extra["ddh"], rv.extra["rhs"], rv.extra["n_sources"]
     solo = vddh.solver(small["m"], small["maxit"], small["tol"])
     solo_counts = [(o.num_iter, o.num_matvec) for o in (solo(vbs[k])[0] for k in range(K19))]
@@ -2254,10 +2262,10 @@ def main() -> int:
 
     # --- 24. large_unstructured L3 --coarse multiplicative ---------------------
     t24 = time.perf_counter()
-    wc.reset_launches()
+    _reset_launches()
     rec = lu.run_case("unstructured_L3_coarse_mult", lmesh, 256, 3, lomega, ucfg.gmres.tol,
                       coarse="multiplicative", device=dev)
-    launches = dict(wc.wave_cycle.launches)
+    launches = wc.launch_counts()
     print(f"large_unstructured L3 --coarse multiplicative: {json.dumps(rec)}; launches {launches}")
     _only_k1(launches, "grouped", "L3 --coarse", k1_l3)
     if not rec["success"] or rec["restarts"] > 21 or "coarse" not in rec:

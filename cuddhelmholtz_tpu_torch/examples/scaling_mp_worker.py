@@ -36,6 +36,7 @@ from cuddhelmholtz_tpu_torch.parallel import (  # noqa: E402
 )
 from cuddhelmholtz_tpu_torch.solvers.ddh import DDH, _sync  # noqa: E402
 from cuddhelmholtz_tpu_torch.spaces.h1 import FaceSpace, H1Space  # noqa: E402
+from cuddhelmholtz_tpu_torch.utils import spans  # noqa: E402
 from cuddhelmholtz_tpu_torch.utils.basis import Basis  # noqa: E402
 
 
@@ -78,7 +79,7 @@ def main() -> int:
         x = torch.zeros(2 * fem.ndof, device=dev)
         nnz = 4 * fem.ndof * (2 * nb - 1) ** 2  # 2 stiffness + 2 mass applies
     x[0] = 1.0
-    wc.reset_launches()
+    spans.reset(wc.LAUNCHES)
     matvec(x)  # warm-up
     _sync(dev)
     t0 = time.perf_counter()
@@ -88,7 +89,7 @@ def main() -> int:
     dt = (time.perf_counter() - t0) / reps
     rec.update(matvec_seconds=dt, nnz_per_s=nnz / dt, nnz_per_s_per_device=nnz / dt / world,
                finite=bool(torch.isfinite(y).all()),
-               launches={k: v for k, v in wc.wave_cycle.launches.items() if v})
+               launches={k: v for k, v in wc.launch_counts().items() if v})
     if rank == 0:
         print("SCALING_MP " + json.dumps(rec), flush=True)
     torch.distributed.destroy_process_group()

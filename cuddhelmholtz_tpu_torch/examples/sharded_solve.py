@@ -54,6 +54,7 @@ from cuddhelmholtz_tpu_torch.parallel import ShardedDDH, initialize_from_env  # 
 from cuddhelmholtz_tpu_torch.solvers.ddh import DDH, _sync, ddh_action, ddh_rhs  # noqa: E402
 from cuddhelmholtz_tpu_torch.solvers.gmres import gmres  # noqa: E402
 from cuddhelmholtz_tpu_torch.spaces.h1 import H1Space  # noqa: E402
+from cuddhelmholtz_tpu_torch.utils import spans  # noqa: E402
 from cuddhelmholtz_tpu_torch.utils.basis import Basis  # noqa: E402
 
 
@@ -62,7 +63,7 @@ def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 def _launches() -> dict:
-    return {k: v for k, v in wc.wave_cycle.launches.items() if v}
+    return {k: v for k, v in wc.launch_counts().items() if v}
 
 
 def solve(nx: int, deg: int, block_size: int, m: int, maxit: int, tol: float,
@@ -92,7 +93,7 @@ def solve(nx: int, deg: int, block_size: int, m: int, maxit: int, tol: float,
     want = (ddh.action(lam), ddh.rhs(bf), ddh.postprocess(lam, bf))
     sddh = ShardedDDH(ddh)
     rec["rows_per_rank"] = sddh.rows_per_rank
-    wc.reset_launches()
+    spans.reset(wc.LAUNCHES)
     got = (sddh.action(lam), sddh.rhs(bf), sddh.postprocess(lam, bf))
     direct = _launches()
     rec["rel_action"], rec["rel_rhs"], rec["rel_postprocess"] = map(_rel, got, want)
@@ -105,7 +106,7 @@ def solve(nx: int, deg: int, block_size: int, m: int, maxit: int, tol: float,
     rec["transfer_seconds"] = time.perf_counter() - t0
     sddh = ShardedDDH(ddh)
     rec["rolled"] = sddh._roll is not None
-    wc.reset_launches()
+    spans.reset(wc.LAUNCHES)
     runs = []
     for _ in range(2):
         _sync(dev)

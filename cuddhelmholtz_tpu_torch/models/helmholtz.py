@@ -55,6 +55,7 @@ from ..solvers.gmres import gmres
 from ..spaces.h1 import FaceSpace, H1Space
 from ..utils.device import check_device
 from ..utils.quadrature import QuadratureRule
+from ..utils.spans import spanned
 
 
 class HelmholtzOp(NamedTuple):
@@ -107,10 +108,12 @@ def make_helmholtz_op(
     )
 
 
+@spanned("helmholtz.apply")
 def apply_helmholtz(op: HelmholtzOp, U: torch.Tensor, grid: tuple | None = None) -> torch.Tensor:
     """Y = A U for U = [u; v] of length 2*ndof.  Pass ``grid=(nx, ny)`` on a
     GridH1Space to use the strided-slice structured assembly (the kron path
-    takes precedence when the op has it)."""
+    takes precedence when the op has it).  Each call is the span
+    ``helmholtz.apply``."""
     n = op.ndof
     u, v = U[:n], U[n:]
     w2 = op.omega * op.omega

@@ -37,6 +37,12 @@ The kernels are compiled with ``nvcc`` from the package's sources at first
 use into ``cuddhelmholtz_tpu_torch/_build/`` (one process per source, all
 started together) and bound with ``ctypes`` to plain C entry points.
 Nothing is built or loaded at import time.
+
+Every cycle is counted in the counters of ``utils/spans.py``: ``k1.rows``
+(the rows it runs) and ``k1.flop``, 2 * 2 * wh_maxit * nt * the sum over
+those rows of nnz(S of the row's group), on either device and whatever
+form of S the kernel reads; each kernel launch in ``k1.launches.<route
+key>`` (``launch_counts``).
 """
 
 from __future__ import annotations
@@ -51,6 +57,9 @@ from pathlib import Path
 from typing import NamedTuple
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
+
+from ...utils.spans import count, totals
 
 WH_MAXIT = 5  # fixed-point WaveHoltz iterations per apply
 # kRows of the dense kernels, and the unit of every run of rows sharing one S
@@ -73,6 +82,10 @@ MMA_MAX_PAD = TILE * max(slots * cap for slots, cap in MMA_INSTANCES)
 MMA_PREFERRED_MAX_PAD = TILE * MMA_INSTANCES[0][1]  # one slot a warp: 192
 MMA_PREFERRED_TILES = 9
 VARIANTS = ("mma", "sparse", "resident", "streamed")
+# the counter prefix of the kernel launches, and the route keys it counts
+LAUNCHES = "k1.launches."
+ROUTE_KEYS = ("shared", "grouped", "streamed_shared", "streamed_grouped", "sparse_shared",
+              "sparse_grouped", "sparse_per_row", "mma_shared", "mma_grouped")
 
 _PKG = Path(__file__).resolve().parents[2]
 SOURCES = {
@@ -190,7 +203,7 @@ def kernel_variant(pad: int, limit: int, stride: int | None = None,
 class Route(NamedTuple):
     """How ``wave_cycle`` runs one cycle on the kernel it chose."""
 
-    key: str  # its count in ``wave_cycle.launches``
+    key: str  # its launches are counted in ``k1.launches.<key>``
     rows: int  # rows the kernel computes
     groups: int  # stiffness matrices it reads (sparse-form groups)
     tile: int  # copies of each caller row among them (1: none)
@@ -770,13 +783,16 @@ def wave_cycle(
     row (layout (c)): the sparse kernel runs it in its per-row instance,
     each row once; a dense kernel takes each row ``ROWS_PER_BLOCK`` times
     in layout (b) and the result is read back once (``cycle_route``).
-    Launches are counted in ``wave_cycle.launches`` under the route's key:
-    ``"shared"`` (a), ``"grouped"`` (b, and (c) on a dense kernel) with an
-    ``"mma_"``, ``"sparse_"`` or ``"streamed_"`` prefix for those kernels,
-    and ``"sparse_per_row"`` (c).  Anything else raises; nothing falls
-    back.
+    Launches are counted in ``k1.launches.<key>`` under the route's key
+    (``ROUTE_KEYS``): ``"shared"`` (a), ``"grouped"`` (b, and (c) on a
+    dense kernel) with an ``"mma_"``, ``"sparse_"`` or ``"streamed_"``
+    prefix for those kernels, and ``"sparse_per_row"`` (c); ``k1.rows`` and
+    ``k1.flop`` count the rows the kernel or the plain cycle runs
+    (``_count_work``; a dense kernel's (c) counts its tiled rows).
+    Anything else raises; nothing falls back.
     """
     if F.device.type == "cpu":
+        _count_work(params, F.shape[0], wh_maxit)
         return wave_cycle_plain(params, F, G, wh_maxit, s_group_size)
     if F.device.type != "cuda":
         raise ValueError(f"wave_cycle: unsupported device {F.device}")
@@ -811,6 +827,7 @@ def wave_cycle(
         u, v = wave_cycle(tiled, F.repeat_interleave(r, dim=0), G.repeat_interleave(r, dim=0),
                           wh_maxit, route.s_group_size, variant=variant)
         return u[::r], v[::r]
+    _count_work(params, ndom, wh_maxit)
     lib = _library(variant)
     u = torch.empty_like(F)
     v = torch.empty_like(F)
@@ -835,8 +852,29 @@ def wave_cycle(
     if err:
         msg = getattr(lib, _ENTRY[variant] + "error_string")(err).decode()
         raise RuntimeError(f"wave_cycle: {variant} kernel launch failed: {msg}")
-    wave_cycle.launches[route.key] += 1
+    count(LAUNCHES + route.key)
     return u, v
+
+
+# nnz of each stiffness tensor a cycle has run on, read from the device once
+_NNZ = WeakIdKeyDictionary()
+
+
+def _count_work(params, rows: int, wh_maxit: int) -> None:
+    """Count a cycle of ``rows`` rows in ``k1.rows`` and its useful work in
+    ``k1.flop``: 2 * 2 * wh_maxit * nt FLOP per non-zero of each row's S
+    (two stiffness products a leapfrog step, a multiply and an add each).
+    The rows run in equal runs, one per matrix of S, so that sum is the
+    rows per matrix times the non-zeros of all of S, read once per S tensor
+    (a per-row S that ``solvers/ddh.py::_rows`` repeats for K > 1 sources is
+    a new tensor, and read, at each cycle).  S is not changed in place."""
+    S = params.S
+    nnz = _NNZ.get(S)
+    if nnz is None:
+        nnz = _NNZ[S] = int(torch.count_nonzero(S))
+    groups = 1 if S.dim() == 2 else S.shape[0]
+    count("k1.rows", rows)
+    count("k1.flop", 4 * wh_maxit * params.tables.shape[0] * (rows // groups) * nnz)
 
 
 def _shared_memory_limit(dev: int) -> int:
@@ -860,10 +898,12 @@ def default_variant(S: torch.Tensor, index: torch.Tensor | None = None) -> str:
     return "mma" if mma_preferred(pad, tile_pairs(S, index)) else "sparse"
 
 
-def reset_launches() -> None:
-    """Set every layout's launch count to 0."""
-    for key in wave_cycle.launches:
-        wave_cycle.launches[key] = 0
+def launch_counts() -> dict:
+    """The kernel launches by route key (every key of ``ROUTE_KEYS``): the
+    totals of the ``k1.launches.`` counters (``utils/spans.py``; its
+    ``reset(LAUNCHES)`` sets them to 0)."""
+    launched = totals(LAUNCHES)
+    return {key: launched.get(key, 0) for key in ROUTE_KEYS}
 
 
 def sparse_blocks_per_sm(pad: int, stride: int, per_row: bool, device: torch.device) -> int:
@@ -898,9 +938,3 @@ def kernel_occupancy(variant: str, pad: int, form, device: torch.device,
         raise RuntimeError(f"wave_cycle: cannot read the {variant} kernel's occupancy on {device}")
     return {**out, "blocks_per_sm": blocks}
 
-
-wave_cycle.launches = {
-    "shared": 0, "grouped": 0, "streamed_shared": 0, "streamed_grouped": 0,
-    "sparse_shared": 0, "sparse_grouped": 0, "sparse_per_row": 0,
-    "mma_shared": 0, "mma_grouped": 0,
-}

@@ -37,6 +37,12 @@ with those tiles (``S_tiles``), else the sparse kernel with S's exact
 non-zeros (``S_sparse``: the flagship, pad 320 and 632, and the per-row
 layout (c)).  The operator decides once, builds only that kernel's form,
 on the first cycle that needs it, and hands it to every later one.
+
+Spans (``utils/spans.py``): ``ddh.init`` (the constructor), ``ddh.prepare``
+and in it ``ddh.groups``, ``ddh.probe`` (one per probe chunk), ``ddh.route``
+and ``ddh.io_maps``; ``ddh.solve`` (one ``solver`` run), ``ddh.rhs``,
+``ddh.action``, ``ddh.postprocess`` and ``ddh.precond`` (one application
+of ``DDHPreconditioner``).
 """
 
 from __future__ import annotations
@@ -67,6 +73,7 @@ from ..spaces.ensemble import EnsembleSpace, structured_labels
 from ..spaces.h1 import H1Space
 from ..utils.debug import check_finite, check_index_table
 from ..utils.device import check_device  # noqa: F401 (re-exported to the drivers)
+from ..utils.spans import span, spanned
 from .gmres import (
     BlockGmresResult,
     GmresResult,
@@ -301,6 +308,7 @@ class DDH(nn.Module):
     reference's) or ``"mass"`` (by the partition-of-unity mass weight).
     """
 
+    @spanned("ddh.init")
     def __init__(
         self,
         omega: float,
@@ -594,6 +602,7 @@ class DDH(nn.Module):
     def forward(self, lam: torch.Tensor) -> torch.Tensor:
         return self.action(lam)
 
+    @spanned("ddh.action")
     def action(self, lam: torch.Tensor) -> torch.Tensor:
         """y = lambda - S(lambda): the GMRES operator."""
         check_finite("DDH.action input", lam)
@@ -623,6 +632,7 @@ class DDH(nn.Module):
             self._patch = _build_patch_io(self.space, self.params, self.io)
         return self._patch
 
+    @spanned("ddh.rhs")
     def rhs(self, f: torch.Tensor) -> torch.Tensor:
         """Substructured rhs from the Helmholtz forcing."""
         check_finite("DDH.rhs input", f)
@@ -635,6 +645,7 @@ class DDH(nn.Module):
         return ddh_rhs(self.params, f, self.g_ndof, self.n_lambda, wh_maxit=self.wh_maxit,
                        cycle=self._cycle)
 
+    @spanned("ddh.postprocess")
     def postprocess(self, lam: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
         """Recover the [u; v] solution."""
         check_finite("DDH.postprocess lambda", lam)
@@ -690,19 +701,20 @@ class DDH(nn.Module):
         the JAX package's parts and order; for a per-domain S its exact
         float32 rows take the place of the JAX package's device probe."""
         if self._groups is None:
-            f32 = np.float32
-            parts = [
-                self._Ha_np.astype(f32),
-                self._mi_np.astype(f32),
-                self._a2wf_np.astype(f32),
-                self._Hf_np,
-                self._fslot_np.astype(np.float64),
-            ]
-            if self._S_np.ndim == 3:
-                parts.append(self._S_np.astype(f32).reshape(self.n_domains, -1))
-            key = np.concatenate([np.asarray(x, dtype=np.float64) for x in parts], axis=1)
-            _, uidx, inv = np.unique(key, axis=0, return_index=True, return_inverse=True)
-            self._groups = (uidx, inv.reshape(-1), len(uidx))
+            with span("ddh.groups"):
+                f32 = np.float32
+                parts = [
+                    self._Ha_np.astype(f32),
+                    self._mi_np.astype(f32),
+                    self._a2wf_np.astype(f32),
+                    self._Hf_np,
+                    self._fslot_np.astype(np.float64),
+                ]
+                if self._S_np.ndim == 3:
+                    parts.append(self._S_np.astype(f32).reshape(self.n_domains, -1))
+                key = np.concatenate([np.asarray(x, dtype=np.float64) for x in parts], axis=1)
+                _, uidx, inv = np.unique(key, axis=0, return_index=True, return_inverse=True)
+                self._groups = (uidx, inv.reshape(-1), len(uidx))
         return self._groups
 
     def _probe(self, cols: np.ndarray, stats: str) -> tuple:
@@ -714,7 +726,7 @@ class DDH(nn.Module):
         per-domain S runs layout (b) with rows ordered (domain, column), one
         run of ``c8`` rows per unique matrix (columns zero-padded to a
         multiple of 8).  Columns go in chunks of at most PROBE_STATE_ELEMS
-        state elements per array."""
+        state elements per array, each chunk the span ``ddh.probe``."""
         uidx, _, nu = self._domain_groups()
         ncols, pad = cols.shape[0], self.pad
         p = self.params
@@ -734,42 +746,39 @@ class DDH(nn.Module):
         chunk = max(1, min(ncols, PROBE_STATE_ELEMS // (nu * pad)))
         if grouped:
             chunk = max(ROWS_PER_BLOCK, chunk // ROWS_PER_BLOCK * ROWS_PER_BLOCK)
-        us, vs, secs, rows = [], [], [], 0
+        us, vs, rows = [], [], 0
         for k0 in range(0, ncols, chunk):
             c = min(chunk, ncols - k0)
-            t0 = time.perf_counter()
-            if grouped:
-                c8 = -(-c // ROWS_PER_BLOCK) * ROWS_PER_BLOCK
-                rows += nu * c8
-                fg = np.zeros((2, nu, c8, pad), cols.dtype)
-                fg[:, :, :c] = cols[k0:k0 + c].transpose(1, 2, 0, 3)
-                fg = torch.as_tensor(fg, device=dev).reshape(2, nu * c8, pad)
-                pc = p._replace(
-                    S=S_u, Ha=Ha_u.repeat_interleave(c8, dim=0),
-                    inv_mi=mi_u.repeat_interleave(c8, dim=0),
-                )
-                u, v = wave_cycle(pc, fg[0], fg[1], self.wh_maxit, s_group_size=c8,
-                                  **forms)
-                u = u.reshape(nu, c8, pad)[:, :c].transpose(0, 1)
-                v = v.reshape(nu, c8, pad)[:, :c].transpose(0, 1)
-            else:
-                fg = torch.as_tensor(cols[k0:k0 + c].transpose(1, 0, 2, 3), device=dev)
-                fg = fg.reshape(2, c * nu, pad)
-                pc = p._replace(Ha=Ha_u.repeat(c, 1), inv_mi=mi_u.repeat(c, 1))
-                rows += nu * c
-                u, v = wave_cycle(pc, fg[0], fg[1], self.wh_maxit, **forms)
-                u, v = u.reshape(c, nu, pad), v.reshape(c, nu, pad)
-            us.append(u)
-            vs.append(v / p.omega)
-            _sync(dev)
-            secs.append(time.perf_counter() - t0)
+            with span("ddh.probe"):
+                if grouped:
+                    c8 = -(-c // ROWS_PER_BLOCK) * ROWS_PER_BLOCK
+                    rows += nu * c8
+                    fg = np.zeros((2, nu, c8, pad), cols.dtype)
+                    fg[:, :, :c] = cols[k0:k0 + c].transpose(1, 2, 0, 3)
+                    fg = torch.as_tensor(fg, device=dev).reshape(2, nu * c8, pad)
+                    pc = p._replace(
+                        S=S_u, Ha=Ha_u.repeat_interleave(c8, dim=0),
+                        inv_mi=mi_u.repeat_interleave(c8, dim=0),
+                    )
+                    u, v = wave_cycle(pc, fg[0], fg[1], self.wh_maxit, s_group_size=c8,
+                                      **forms)
+                    u = u.reshape(nu, c8, pad)[:, :c].transpose(0, 1)
+                    v = v.reshape(nu, c8, pad)[:, :c].transpose(0, 1)
+                else:
+                    fg = torch.as_tensor(cols[k0:k0 + c].transpose(1, 0, 2, 3), device=dev)
+                    fg = fg.reshape(2, c * nu, pad)
+                    pc = p._replace(Ha=Ha_u.repeat(c, 1), inv_mi=mi_u.repeat(c, 1))
+                    rows += nu * c
+                    u, v = wave_cycle(pc, fg[0], fg[1], self.wh_maxit, **forms)
+                    u, v = u.reshape(c, nu, pad), v.reshape(c, nu, pad)
+                us.append(u)
+                vs.append(v / p.omega)
         info = {
             f"{stats}_nu": int(nu),
             f"{stats}_ncols": int(ncols),
             f"{stats}_chunk_cols": int(chunk),
             f"{stats}_layout": "grouped" if grouped else "shared",
             f"{stats}_rows": rows,
-            f"{stats}_chunk_seconds": secs,
         }
         return torch.cat(us), torch.cat(vs), info
 
@@ -822,9 +831,10 @@ class DDH(nn.Module):
         self._T_groups = np.asarray(groups)
         self._T_dev = None
         self.use_transfer = True
-        self.route = _build_roll_route(
-            self._T_u, self._T_groups, self._B1_np, self.n_own, self.gmask.device
-        )
+        with span("ddh.route"):
+            self.route = _build_roll_route(
+                self._T_u, self._T_groups, self._B1_np, self.n_own, self.gmask.device
+            )
 
     def precompute_io_maps(self, max_bytes: int = 1 << 30):
         """Precompute the rhs/postprocess linear maps (see ``IOMaps``).
@@ -853,6 +863,7 @@ class DDH(nn.Module):
             maps(U[:base]), maps(V[:base]), maps(R), maps(U[base:]), maps(V[base:]), inv
         )
 
+    @spanned("ddh.io_maps")
     def set_io_maps(self, Pu, Pv, R, Pul, Pvl, groups: np.ndarray) -> "IOMaps":
         """Use these rhs/postprocess maps (shapes in ``IOMaps``) with the
         group of each domain."""
@@ -977,6 +988,7 @@ class DDH(nn.Module):
             self.coarse_space = coarse_from_arrays(coarse, self.gmask.device)
         return True
 
+    @spanned("ddh.prepare")
     def prepare(self, cache_dir: str | None = None, want_io: bool = True) -> dict:
         """Load or compute the transfer (and optionally io) maps; returns
         the stats: ``cache_hit``, ``cache_dir``, and ``load_seconds`` on a
@@ -1087,18 +1099,21 @@ class DDH(nn.Module):
             return self._coarse_solver(m, maxit, tol, coarse)
         opts = dict(gmres_opts or {})
         if block:
+            @spanned("ddh.solve")
             def run_block(bs: torch.Tensor) -> tuple[BlockGmresResult, torch.Tensor]:
                 out = block_gmres(self.action, self.rhs(bs), m=m, maxit=maxit, tol=tol, **opts)
                 return out, self.postprocess(out.x, bs)
 
             return run_block
         if vmapped:
+            @spanned("ddh.solve")
             def run_lockstep(bs: torch.Tensor) -> tuple[LockstepResult, torch.Tensor]:
                 out = gmres_lockstep(self.action, self.rhs(bs), m=m, maxit=maxit, tol=tol, **opts)
                 return out, self.postprocess(out.x, bs)
 
             return run_lockstep
 
+        @spanned("ddh.solve")
         def run(b: torch.Tensor) -> tuple[GmresResult, torch.Tensor]:
             out = gmres(self.action, self.rhs(b), m=m, maxit=maxit, tol=tol, **opts)
             return out, self.postprocess(out.x, b)
@@ -1114,6 +1129,7 @@ class DDH(nn.Module):
                 return q + v - self.action(q)
             return v + q
 
+        @spanned("ddh.solve")
         def run(b: torch.Tensor) -> tuple[GmresResult, torch.Tensor]:
             out = fgmres(self.action, self.rhs(b), P, m=m, maxit=maxit, tol=tol)
             return out, self.postprocess(out.x, b)
@@ -1136,6 +1152,7 @@ class DDHPreconditioner:
         self.gmres_opts = dict(gmres_opts or {})
         self.calls = 0
 
+    @spanned("ddh.precond")
     def __call__(self, v: torch.Tensor) -> torch.Tensor:
         self.calls += 1
         v32 = v.to(self.ddh.gmask.dtype)

@@ -29,7 +29,11 @@ compare one to one:
 
 The loops run on the host.  The standard mode reads its exit flag once per
 Arnoldi step; the deferred mode only once per restart.  The vectors and the
-small least-squares algebra stay on ``b``'s device.  The JAX package's
+small least-squares algebra stay on ``b``'s device.  Every blocking host read
+of every variant goes through ``_read``, which counts it in
+``gmres.host_syncs`` and spans it as ``gmres.sync`` (``utils/spans.py``);
+each solve is the span ``gmres.solve`` and each Arnoldi step, its matvec
+included, ``gmres.step`` (one block step in ``block_gmres``).  The JAX package's
 ``unroll`` option has no counterpart: the eager loop already reads only the
 populated rows of the basis.
 
@@ -62,6 +66,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..utils.linalg import norm
+from ..utils.spans import count, span, spanned
 
 
 class GmresResult(NamedTuple):
@@ -71,6 +76,14 @@ class GmresResult(NamedTuple):
     num_matvec: int
     res_norm: torch.Tensor  # (maxit+1,) residual history; NaN-padded after exit
     n_hist: int  # number of valid entries in res_norm
+
+
+def _read(t: torch.Tensor):
+    """The Python value of a one-element tensor: a blocking host read,
+    counted and spanned."""
+    count("gmres.host_syncs")
+    with span("gmres.sync"):
+        return t.item()
 
 
 def _orthogonalize(Vk: torch.Tensor, w: torch.Tensor, reorth: bool):
@@ -117,35 +130,38 @@ def _restart(matvec, r, r_nrm, m, tol_bnrm, nmv, reorth=True, precond=None, vin=
     eta[0] = r_nrm
     k_used = 0
     for k in range(m):
-        w = _step_matvec(matvec, precond, V, Z, k, vin)
-        nmv += 1
-        # rows beyond k are zero, so only the populated rows are read
-        h, w = _orthogonalize(V[: k + 1], w, reorth)
-        hk1 = norm(w)
-        breakdown = hk1 == 0.0
-        V[k + 1] = torch.where(breakdown, w, w / torch.where(breakdown, torch.ones_like(hk1), hk1))
-        # rotate the new Hessenberg column by the accumulated rotations
-        hc = torch.zeros(m1, dtype=dtype, device=dev)
-        hc[: k + 1] = h
-        hc[k + 1] = hk1
-        col = Q @ hc
-        a, b = col[k], col[k + 1]
-        t = torch.hypot(a, b)
-        safe = t > 0.0
-        one = torch.ones_like(t)
-        c = torch.where(safe, a / torch.where(safe, t, one), one)
-        s = torch.where(safe, b / torch.where(safe, t, one), torch.zeros_like(t))
-        R[: k + 1, k] = col[: k + 1]
-        R[k, k] = c * col[k] + s * col[k + 1]
-        # Q <- G Q: only rows k and k+1 change
-        qk, qk1 = Q[k].clone(), Q[k + 1].clone()
-        Q[k] = c * qk + s * qk1
-        Q[k + 1] = -s * qk + c * qk1
-        ek = eta[k].clone()
-        eta[k + 1] = -s * ek
-        eta[k] = c * ek
-        k_used = k + 1
-        if bool(((eta[k + 1].abs() < tol_bnrm) | breakdown).item()):
+        with span("gmres.step"):
+            w = _step_matvec(matvec, precond, V, Z, k, vin)
+            nmv += 1
+            # rows beyond k are zero, so only the populated rows are read
+            h, w = _orthogonalize(V[: k + 1], w, reorth)
+            hk1 = norm(w)
+            breakdown = hk1 == 0.0
+            V[k + 1] = torch.where(breakdown, w,
+                                   w / torch.where(breakdown, torch.ones_like(hk1), hk1))
+            # rotate the new Hessenberg column by the accumulated rotations
+            hc = torch.zeros(m1, dtype=dtype, device=dev)
+            hc[: k + 1] = h
+            hc[k + 1] = hk1
+            col = Q @ hc
+            a, b = col[k], col[k + 1]
+            t = torch.hypot(a, b)
+            safe = t > 0.0
+            one = torch.ones_like(t)
+            c = torch.where(safe, a / torch.where(safe, t, one), one)
+            s = torch.where(safe, b / torch.where(safe, t, one), torch.zeros_like(t))
+            R[: k + 1, k] = col[: k + 1]
+            R[k, k] = c * col[k] + s * col[k + 1]
+            # Q <- G Q: only rows k and k+1 change
+            qk, qk1 = Q[k].clone(), Q[k + 1].clone()
+            Q[k] = c * qk + s * qk1
+            Q[k + 1] = -s * qk + c * qk1
+            ek = eta[k].clone()
+            eta[k + 1] = -s * ek
+            eta[k] = c * ek
+            k_used = k + 1
+            stop = _read((eta[k + 1].abs() < tol_bnrm) | breakdown)
+        if stop:
             break
     y = torch.linalg.solve_triangular(R[:k_used, :k_used], eta[:k_used, None], upper=True)[:, 0]
     D = V if Z is None else Z
@@ -159,14 +175,15 @@ def _restart_deferred(matvec, r, r_nrm, m, nmv, reorth=True, precond=None):
     V, Z = _basis(r, r_nrm, m, precond is not None)
     H = torch.zeros((m + 1, m), dtype=dtype, device=dev)
     for k in range(m):
-        w = _step_matvec(matvec, precond, V, Z, k)
-        nmv += 1
-        h, w = _orthogonalize(V[: k + 1], w, reorth)
-        hk1 = norm(w)
-        ok = hk1 > 0.0
-        V[k + 1] = torch.where(ok, w / torch.where(ok, hk1, torch.ones_like(hk1)), w)
-        H[: k + 1, k] = h
-        H[k + 1, k] = hk1
+        with span("gmres.step"):
+            w = _step_matvec(matvec, precond, V, Z, k)
+            nmv += 1
+            h, w = _orthogonalize(V[: k + 1], w, reorth)
+            hk1 = norm(w)
+            ok = hk1 > 0.0
+            V[k + 1] = torch.where(ok, w / torch.where(ok, hk1, torch.ones_like(hk1)), w)
+            H[: k + 1, k] = h
+            H[k + 1, k] = hk1
     N = H.T @ H
     ridge = 1e-7 * (torch.trace(N) / m + 1e-30)
     L = torch.linalg.cholesky(N + ridge * torch.eye(m, dtype=dtype, device=dev))
@@ -186,7 +203,7 @@ def _solve(matvec, b, x0, m, maxit, tol, reorth, deferred, precond) -> GmresResu
     hist = torch.full((maxit + 1,), float("nan"), dtype=dtype, device=dev)
     hist[0] = r_nrm
     it, nmv = 0, 1
-    while bool(((r_nrm >= tol_bnrm) & (r_nrm > 0.0)).item()) and it < maxit - 1:
+    while _read((r_nrm >= tol_bnrm) & (r_nrm > 0.0)) and it < maxit - 1:
         if deferred:
             dx, nmv = _restart_deferred(matvec, r, r_nrm, m, nmv, reorth, precond)
         else:
@@ -197,7 +214,7 @@ def _solve(matvec, b, x0, m, maxit, tol, reorth, deferred, precond) -> GmresResu
         r_nrm = norm(r)
         it += 1
         hist[it] = r_nrm
-    success = bool((r_nrm <= tol_bnrm).item())
+    success = _read(r_nrm <= tol_bnrm)
     return GmresResult(
         x=x, success=success, num_iter=it, num_matvec=nmv, res_norm=hist, n_hist=it + 1
     )
@@ -210,6 +227,7 @@ def _left(matvec, b, precond):
     return (lambda v: precond(matvec(v))), precond(b)
 
 
+@spanned("gmres.solve")
 def gmres(
     matvec: Callable,
     b: torch.Tensor,
@@ -254,6 +272,7 @@ class ProgressBar:
         sys.stdout.flush()
 
 
+@spanned("gmres.solve")
 def gmres_host(
     matvec: Callable,
     b: torch.Tensor,
@@ -283,10 +302,10 @@ def gmres_host(
     x = torch.zeros_like(b) if x0 is None else x0
     bnrm = norm(b)
     tol_bnrm = torch.tensor(tol, dtype=b.dtype, device=b.device) * bnrm
-    tol_f, bnrm_f = float(tol_bnrm), float(bnrm)
+    tol_f, bnrm_f = _read(tol_bnrm), _read(bnrm)
     r = b - matvec(x)
     r_nrm = norm(r)
-    rn = float(r_nrm)
+    rn = _read(r_nrm)
     hist, times = [rn], [0.0]
     it, nmv = 0, 1
     t0 = time.perf_counter()
@@ -300,7 +319,7 @@ def gmres_host(
         r = b - matvec(x)
         nmv += 1
         r_nrm = norm(r)
-        rn = float(r_nrm)
+        rn = _read(r_nrm)
         it += 1
         hist.append(rn)
         times.append(time.perf_counter() - t0)
@@ -321,6 +340,7 @@ def gmres_host(
                        n_hist=len(hist)), times
 
 
+@spanned("gmres.solve")
 def lgmres(
     matvec: Callable,
     b: torch.Tensor,
@@ -361,7 +381,7 @@ def lgmres(
     def vin(j, V):
         return Z[j - m] if m <= j < m + kv else V[j]
 
-    while bool(((r_nrm >= tol_bnrm) & (r_nrm > 0.0)).item()) and it < maxit - 1:
+    while _read((r_nrm >= tol_bnrm) & (r_nrm > 0.0)) and it < maxit - 1:
         dx, nmv = _restart(matvec, r, r_nrm, m + k, tol_bnrm, nmv, reorth, vin=vin)
         x = x + dx
         r = b - matvec(x)
@@ -371,16 +391,17 @@ def lgmres(
         hist[it] = r_nrm
         if k > 0:
             dxn = norm(dx)
-            grew = bool((dxn > 0.0).item())
+            grew = _read(dxn > 0.0)
             Z = torch.roll(Z, 1, dims=0)
             Z[0] = dx / dxn if grew else 0.0
             kv = min(kv + int(grew), k)
-    success = bool((r_nrm <= tol_bnrm).item())
+    success = _read(r_nrm <= tol_bnrm)
     return GmresResult(
         x=x, success=success, num_iter=it, num_matvec=nmv, res_norm=hist, n_hist=it + 1
     )
 
 
+@spanned("gmres.solve")
 def fgmres(
     matvec: Callable,
     b: torch.Tensor,
@@ -417,14 +438,14 @@ def _block_qr(Z: torch.Tensor, eps: float):
     directions) can break it; only when the factorisation fails or L comes
     back not finite does the eigh-whitened polar factor (spectrum clipped at
     eps * lambda_max) take over.  That test is read on the host: one sync
-    per QR (``cholesky_ex`` itself does not sync).
+    per QR (``_read``; ``cholesky_ex`` itself does not sync).
     """
     K = Z.shape[0]
     eye = torch.eye(K, dtype=Z.dtype, device=Z.device)
     G = Z @ Z.T
     tr = torch.trace(G) / K + 1e-30
     Lc, info = torch.linalg.cholesky_ex(G + (30 * eps * tr) * eye)
-    if bool(((info == 0) & torch.isfinite(Lc).all()).item()):
+    if _read((info == 0) & torch.isfinite(Lc).all()):
         Li = torch.linalg.solve_triangular(Lc, eye, upper=False)
         return Lc, Li @ Z
     s, U = torch.linalg.eigh(G)
@@ -433,6 +454,7 @@ def _block_qr(Z: torch.Tensor, eps: float):
     return U * s_c[None, :], (U.T / s_c[:, None]) @ Z
 
 
+@spanned("gmres.solve")
 def block_gmres(
     matvec: Callable,
     B: torch.Tensor,
@@ -464,7 +486,7 @@ def block_gmres(
     hist[0] = rn
     q = (m + 1) * K
     it, nmv = 0, K
-    while bool(((rn >= tol_b) & (rn > 0.0)).any().item()) and it < maxit - 1:
+    while _read(((rn >= tol_b) & (rn > 0.0)).any()) and it < maxit - 1:
         L0, V0 = _block_qr(R, eps)
         W = torch.zeros((q, n), dtype=dtype, device=dev)
         W[:K] = V0
@@ -473,20 +495,21 @@ def block_gmres(
         E = torch.zeros((q, K), dtype=dtype, device=dev)
         E[:K] = L0.T
         for j in range(m):
-            lo, hi = j * K, (j + 1) * K
-            Z = matvec(W[lo:hi])
-            Wl = W[:hi]  # the populated rows
-            h = Wl @ Z.T
-            Z = Z - h.T @ Wl
-            if reorth:
-                h2 = Wl @ Z.T
-                Z = Z - h2.T @ Wl
-                h = h + h2
-            Lj, Vn = _block_qr(Z, eps)
-            Hb[:hi, lo:hi] = h
-            Hb[hi:hi + K, lo:hi] = Lj.T
-            W[hi:hi + K] = Vn
-            nmv += K
+            with span("gmres.step"):
+                lo, hi = j * K, (j + 1) * K
+                Z = matvec(W[lo:hi])
+                Wl = W[:hi]  # the populated rows
+                h = Wl @ Z.T
+                Z = Z - h.T @ Wl
+                if reorth:
+                    h2 = Wl @ Z.T
+                    Z = Z - h2.T @ Wl
+                    h = h + h2
+                Lj, Vn = _block_qr(Z, eps)
+                Hb[:hi, lo:hi] = h
+                Hb[hi:hi + K, lo:hi] = Lj.T
+                W[hi:hi + K] = Vn
+                nmv += K
         N = Hb.T @ Hb
         ridge = 1e-7 * (torch.trace(N) / N.shape[0] + 1e-30)
         eye = torch.eye(N.shape[0], dtype=dtype, device=dev)
@@ -534,46 +557,47 @@ def _lockstep_restart(matvec, r, r_nrm, m, tol_b, nmv, frozen, reorth):
     lanes = torch.arange(K, device=dev)
     used = torch.zeros(K, dtype=torch.int64, device=dev)  # steps each lane took
     for k in range(m):
-        if bool(done.all().item()):
+        if _read(done.all()):
             break
-        act = ~done
-        w = matvec(V[:, k])
-        Vk = V[:, : k + 1]
-        h = torch.einsum("kjn,kn->kj", Vk, w)
-        w = w - torch.einsum("kjn,kj->kn", Vk, h)
-        if reorth:
-            h2 = torch.einsum("kjn,kn->kj", Vk, w)
-            w = w - torch.einsum("kjn,kj->kn", Vk, h2)
-            h = h + h2
-        hk1 = torch.linalg.vector_norm(w, dim=1)
-        breakdown = hk1 == 0.0
-        vnew = torch.where(breakdown[:, None], w,
-                           w / torch.where(breakdown, torch.ones_like(hk1), hk1)[:, None])
-        hc = torch.zeros((K, m1), dtype=dtype, device=dev)
-        hc[:, : k + 1] = h
-        hc[:, k + 1] = hk1
-        col = torch.einsum("kij,kj->ki", Q, hc)
-        a, b = col[:, k], col[:, k + 1]
-        t = torch.hypot(a, b)
-        safe = t > 0.0
-        one = torch.ones_like(t)
-        c = torch.where(safe, a / torch.where(safe, t, one), one)
-        s = torch.where(safe, b / torch.where(safe, t, one), torch.zeros_like(t))
-        rcol = col[:, :m].clone()
-        rcol[:, k] = c * col[:, k] + s * col[:, k + 1]
-        if k + 1 < m:
-            rcol[:, k + 1:] = 0.0
-        R[:, :, k] = torch.where(act[:, None], rcol, R[:, :, k])
-        qk, qk1 = Q[:, k].clone(), Q[:, k + 1].clone()
-        Q[:, k] = torch.where(act[:, None], c[:, None] * qk + s[:, None] * qk1, qk)
-        Q[:, k + 1] = torch.where(act[:, None], -s[:, None] * qk + c[:, None] * qk1, qk1)
-        ek = eta[:, k].clone()
-        eta[:, k + 1] = torch.where(act, -s * ek, eta[:, k + 1])
-        eta[:, k] = torch.where(act, c * ek, torch.zeros_like(ek))
-        V[:, k + 1] = torch.where(act[:, None], vnew, V[:, k + 1])
-        nmv = nmv + act.long()
-        used = used + act.long()
-        done = done | (act & ((eta[lanes, k + 1].abs() < tol_b) | breakdown))
+        with span("gmres.step"):
+            act = ~done
+            w = matvec(V[:, k])
+            Vk = V[:, : k + 1]
+            h = torch.einsum("kjn,kn->kj", Vk, w)
+            w = w - torch.einsum("kjn,kj->kn", Vk, h)
+            if reorth:
+                h2 = torch.einsum("kjn,kn->kj", Vk, w)
+                w = w - torch.einsum("kjn,kj->kn", Vk, h2)
+                h = h + h2
+            hk1 = torch.linalg.vector_norm(w, dim=1)
+            breakdown = hk1 == 0.0
+            vnew = torch.where(breakdown[:, None], w,
+                               w / torch.where(breakdown, torch.ones_like(hk1), hk1)[:, None])
+            hc = torch.zeros((K, m1), dtype=dtype, device=dev)
+            hc[:, : k + 1] = h
+            hc[:, k + 1] = hk1
+            col = torch.einsum("kij,kj->ki", Q, hc)
+            a, b = col[:, k], col[:, k + 1]
+            t = torch.hypot(a, b)
+            safe = t > 0.0
+            one = torch.ones_like(t)
+            c = torch.where(safe, a / torch.where(safe, t, one), one)
+            s = torch.where(safe, b / torch.where(safe, t, one), torch.zeros_like(t))
+            rcol = col[:, :m].clone()
+            rcol[:, k] = c * col[:, k] + s * col[:, k + 1]
+            if k + 1 < m:
+                rcol[:, k + 1:] = 0.0
+            R[:, :, k] = torch.where(act[:, None], rcol, R[:, :, k])
+            qk, qk1 = Q[:, k].clone(), Q[:, k + 1].clone()
+            Q[:, k] = torch.where(act[:, None], c[:, None] * qk + s[:, None] * qk1, qk)
+            Q[:, k + 1] = torch.where(act[:, None], -s[:, None] * qk + c[:, None] * qk1, qk1)
+            ek = eta[:, k].clone()
+            eta[:, k + 1] = torch.where(act, -s * ek, eta[:, k + 1])
+            eta[:, k] = torch.where(act, c * ek, torch.zeros_like(ek))
+            V[:, k + 1] = torch.where(act[:, None], vnew, V[:, k + 1])
+            nmv = nmv + act.long()
+            used = used + act.long()
+            done = done | (act & ((eta[lanes, k + 1].abs() < tol_b) | breakdown))
     # a lane's rhs past its last step is 0 (the solo solve reads eta[:used])
     rhs = torch.where(torch.arange(m, device=dev) < used[:, None], eta[:, :m], 0.0)
     y = torch.linalg.solve_triangular(R, rhs[..., None], upper=True)[..., 0]
@@ -590,20 +614,21 @@ def _lockstep_restart_deferred(matvec, r, r_nrm, m, nmv, frozen, reorth):
     V[:, 0] = r / torch.where(r_nrm > 0.0, r_nrm, torch.ones_like(r_nrm))[:, None]
     H = torch.zeros((K, m + 1, m), dtype=dtype, device=dev)
     for k in range(m):
-        w = matvec(V[:, k])
-        Vk = V[:, : k + 1]
-        h = torch.einsum("kjn,kn->kj", Vk, w)
-        w = w - torch.einsum("kjn,kj->kn", Vk, h)
-        if reorth:
-            h2 = torch.einsum("kjn,kn->kj", Vk, w)
-            w = w - torch.einsum("kjn,kj->kn", Vk, h2)
-            h = h + h2
-        hk1 = torch.linalg.vector_norm(w, dim=1)
-        ok = hk1 > 0.0
-        safe = torch.where(ok, hk1, torch.ones_like(hk1))
-        V[:, k + 1] = torch.where(ok[:, None], w / safe[:, None], w)
-        H[:, : k + 1, k] = h
-        H[:, k + 1, k] = hk1
+        with span("gmres.step"):
+            w = matvec(V[:, k])
+            Vk = V[:, : k + 1]
+            h = torch.einsum("kjn,kn->kj", Vk, w)
+            w = w - torch.einsum("kjn,kj->kn", Vk, h)
+            if reorth:
+                h2 = torch.einsum("kjn,kn->kj", Vk, w)
+                w = w - torch.einsum("kjn,kj->kn", Vk, h2)
+                h = h + h2
+            hk1 = torch.linalg.vector_norm(w, dim=1)
+            ok = hk1 > 0.0
+            safe = torch.where(ok, hk1, torch.ones_like(hk1))
+            V[:, k + 1] = torch.where(ok[:, None], w / safe[:, None], w)
+            H[:, : k + 1, k] = h
+            H[:, k + 1, k] = hk1
     live = (~frozen).nonzero()[:, 0]
     Hl = H[live]
     N = Hl.transpose(1, 2) @ Hl
@@ -616,6 +641,7 @@ def _lockstep_restart_deferred(matvec, r, r_nrm, m, nmv, frozen, reorth):
     return dx, nmv + m * (~frozen).long()
 
 
+@spanned("gmres.solve")
 def gmres_lockstep(
     matvec: Callable,
     B: torch.Tensor,
@@ -649,7 +675,7 @@ def gmres_lockstep(
     lanes = torch.arange(K, device=dev)
     while True:
         run = (r_nrm >= tol_b) & (r_nrm > 0.0) & (it < maxit - 1)
-        if not bool(run.any().item()):
+        if not _read(run.any()):
             break
         if deferred:
             dx, nmv = _lockstep_restart_deferred(matvec, r, r_nrm, m, nmv, ~run, reorth)

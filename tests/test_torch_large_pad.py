@@ -303,10 +303,10 @@ def test_streamed_shared_matches_plain(cuda):
     mask = ddh.gmask.repeat(5, 1)
     rng = np.random.default_rng(2)
     F, G = _masked(rng, mask.cpu().numpy(), cuda), _masked(rng, mask.cpu().numpy(), cuda)
-    before = dict(wc.wave_cycle.launches)
+    before = wc.launch_counts()
     u, v = wc.wave_cycle(p, F, G, 2, variant="streamed")
     torch.cuda.synchronize()
-    assert wc.wave_cycle.launches == {**before, "streamed_shared": before["streamed_shared"] + 1}
+    assert wc.launch_counts() == {**before, "streamed_shared": before["streamed_shared"] + 1}
     _check(u, v, *wc.wave_cycle_plain(p, F, G, 2), mask == 0)
 
 
@@ -326,10 +326,10 @@ def test_streamed_grouped_matches_plain(cuda, c):
         mask = mask.repeat_interleave(c, 0)
     rng = np.random.default_rng(3)
     F, G = _masked(rng, mask.cpu().numpy(), cuda), _masked(rng, mask.cpu().numpy(), cuda)
-    before = dict(wc.wave_cycle.launches)
+    before = wc.launch_counts()
     u, v = wc.wave_cycle(p, F, G, 2, c, variant="streamed")
     torch.cuda.synchronize()
-    assert wc.wave_cycle.launches == {**before, "streamed_grouped": before["streamed_grouped"] + 1}
+    assert wc.launch_counts() == {**before, "streamed_grouped": before["streamed_grouped"] + 1}
     _check(u, v, *wc.wave_cycle_plain(p, F, G, 2, c), mask == 0)
 
 
@@ -341,11 +341,11 @@ def test_streamed_matches_resident_at_pad_176(cuda):
     rng = np.random.default_rng(4)
     m = ddh.gmask.cpu().numpy()
     F, G = _masked(rng, m, cuda), _masked(rng, m, cuda)
-    before = dict(wc.wave_cycle.launches)
+    before = wc.launch_counts()
     u_r, v_r = wc.wave_cycle(ddh.params, F, G, 1, variant="resident")
     u_s, v_s = wc.wave_cycle(ddh.params, F, G, 1, variant="streamed")
     torch.cuda.synchronize()
-    assert wc.wave_cycle.launches == {
+    assert wc.launch_counts() == {
         **before, "shared": before["shared"] + 1,
         "streamed_shared": before["streamed_shared"] + 1,
     }

@@ -280,10 +280,10 @@ def _masked(rng, mask):
 
 
 def _run(p, F, G, key, mask, wh_maxit=1, s_group_size=None, **kw):
-    before = dict(wc.wave_cycle.launches)
+    before = wc.launch_counts()
     u, v = wc.wave_cycle(p, F, G, wh_maxit, s_group_size, **kw)
     torch.cuda.synchronize()
-    assert wc.wave_cycle.launches == {**before, key: before[key] + 1}
+    assert wc.launch_counts() == {**before, key: before[key] + 1}
     assert (u[mask == 0] == 0).all() and (v[mask == 0] == 0).all()
     return u, v
 

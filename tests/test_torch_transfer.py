@@ -28,6 +28,7 @@ from cuddhelmholtz_tpu_torch.examples.drivers import run_ddh
 from cuddhelmholtz_tpu_torch.mesh.mesh2d import Mesh2D
 from cuddhelmholtz_tpu_torch.solvers import ddh as ddh_mod
 from cuddhelmholtz_tpu_torch.spaces.h1 import H1Space
+from cuddhelmholtz_tpu_torch.utils import spans
 from cuddhelmholtz_tpu_torch.utils.basis import Basis
 
 # Small shapes: torch's intra-op thread pool costs more than it saves here,
@@ -177,9 +178,10 @@ def test_probe_chunks_agree(monkeypatch, layout):
     assert ddh.transfer_stats["transfer_layout"] == layout
     nu = ddh._domain_groups()[2]
     monkeypatch.setattr(ddh_mod, "PROBE_STATE_ELEMS", 10 * nu * ddh.pad)
-    many = ddh.precompute_transfer()
+    with spans.recording() as rec:
+        many = ddh.precompute_transfer()
     assert ddh.transfer_stats["transfer_chunk_cols"] == (8 if layout == "grouped" else 10)
-    assert len(ddh.transfer_stats["transfer_chunk_seconds"]) > 4
+    assert sum(1 for sp in rec.spans if sp[0] == "ddh.probe") > 4
     assert np.abs(many - one).max() <= 1e-6 * np.abs(one).max()
 
 

@@ -120,11 +120,11 @@ def test_plain_per_domain_matches_xla_scan():
 def test_wrapper_runs_plain_on_cpu_without_counting(shared_case):
     _, _, F, G, port, pad = shared_case
     Ft, Gt = torch.from_numpy(F[:, :pad]), torch.from_numpy(G[:, :pad])
-    before = dict(wc.wave_cycle.launches)
+    before = wc.launch_counts()
     u, v = wc.wave_cycle(port, Ft, Gt, wh_maxit=1)
     u0, v0 = wc.wave_cycle_plain(port, Ft, Gt, wh_maxit=1)
     assert torch.equal(u, u0) and torch.equal(v, v0)
-    assert wc.wave_cycle.launches == before
+    assert wc.launch_counts() == before
 
 
 def _grouped_case(device, c=8, nt_override=30):
@@ -268,10 +268,10 @@ def test_kernel_matches_plain(cuda):
     ddh = _port_ddh(cuda)
     F, G = _forcing(ddh.gmask.cpu().numpy(), seed=5)
     Ft, Gt = torch.from_numpy(F).to(cuda), torch.from_numpy(G).to(cuda)
-    before = dict(wc.wave_cycle.launches)
+    before = wc.launch_counts()
     u, v = wc.wave_cycle(ddh.params, Ft, Gt)
     torch.cuda.synchronize()
-    assert wc.wave_cycle.launches == {**before, "sparse_shared": before["sparse_shared"] + 1}
+    assert wc.launch_counts() == {**before, "sparse_shared": before["sparse_shared"] + 1}
     u0, v0 = wc.wave_cycle_plain(ddh.params, Ft, Gt)
     assert _rel_max(u.cpu(), u0.cpu()) < TOL
     assert _rel_max(v.cpu(), v0.cpu()) < TOL
@@ -288,10 +288,10 @@ def test_kernel_per_row_stiffness_matches_plain(cuda):
     assert ddh.params.S.dim() == 3 and ddh.params.S.shape[0] == ddh.n_domains
     F, G = _forcing(ddh.gmask.cpu().numpy(), seed=7)
     Ft, Gt = torch.from_numpy(F).to(cuda), torch.from_numpy(G).to(cuda)
-    before = dict(wc.wave_cycle.launches)
+    before = wc.launch_counts()
     u, v = wc.wave_cycle(ddh.params, Ft, Gt)
     torch.cuda.synchronize()
-    assert wc.wave_cycle.launches == {**before, "sparse_per_row": before["sparse_per_row"] + 1}
+    assert wc.launch_counts() == {**before, "sparse_per_row": before["sparse_per_row"] + 1}
     u0, v0 = wc.wave_cycle_plain(ddh.params, Ft, Gt)
     assert _rel_max(u.cpu(), u0.cpu()) < TOL and _rel_max(v.cpu(), v0.cpu()) < TOL
     pad_mask = ddh.gmask == 0
@@ -303,10 +303,10 @@ def test_kernel_per_row_stiffness_matches_plain(cuda):
 def test_kernel_grouped_matches_plain(cuda, c):
     """Layout (b): runs of c rows against one S each."""
     _, gp, F, G, gmask = _grouped_case(cuda, c=c, nt_override=60)
-    before = dict(wc.wave_cycle.launches)
+    before = wc.launch_counts()
     u, v = wc.wave_cycle(gp, F, G, s_group_size=c)
     torch.cuda.synchronize()
-    assert wc.wave_cycle.launches == {**before, "sparse_grouped": before["sparse_grouped"] + 1}
+    assert wc.launch_counts() == {**before, "sparse_grouped": before["sparse_grouped"] + 1}
     u0, v0 = wc.wave_cycle_plain(gp, F, G, s_group_size=c)
     assert _rel_max(u.cpu(), u0.cpu()) < TOL and _rel_max(v.cpu(), v0.cpu()) < TOL
     assert (u[gmask == 0] == 0).all() and (v[gmask == 0] == 0).all()
@@ -325,11 +325,11 @@ def test_kernel_refuses_bad_groups_and_large_pad(cuda):
     big = 256  # S alone is 256 KB: more than a block's shared memory
     z = torch.zeros((8, big), device=cuda)
     p = gp._replace(S=torch.zeros((1, big, big), device=cuda), Ha=z, inv_mi=z)
-    before = dict(wc.wave_cycle.launches)
+    before = wc.launch_counts()
     u, v = wc.wave_cycle(p, z, z, s_group_size=8)
     us, vs = wc.wave_cycle(p, z, z, s_group_size=8, variant="streamed")
     torch.cuda.synchronize()
-    assert wc.wave_cycle.launches == {
+    assert wc.launch_counts() == {
         **before, "sparse_grouped": before["sparse_grouped"] + 1,
         "streamed_grouped": before["streamed_grouped"] + 1,
     }
