@@ -188,6 +188,15 @@ subprocesses too.
    S's tiles and pad): the square's S at 960 and 3,648 rows, the
    flagship's at 384, 1,024, 5,472 and 12,000.  (At phase 8's pad 632 the
    tile form does not fit, and only the sparse kernel runs.)
+34. (Run right after phase 5, on its operator.)  The transfer apply
+   replayed as a CUDA graph (``_graph_phase``): ``DDH.action`` bit for bit
+   the eager ``ddh_action_transfer_rolled`` called directly at K = 1 and
+   K = 8, one capture for the new K = 8 shape and none in what follows;
+   the lambda-solve with phase 5's restarts and matvecs and bitwise the
+   solve on the eager apply; ``DDHPreconditioner`` on that operator
+   bitwise on repeat and bitwise P on the eager apply; then the host
+   microseconds of an apply, eager and graphed, timed in turns, and the
+   same inside a ``torch.profiler`` recording of the device.
 Every comparison holds a kernel within 2e-4 of the plain cycle relative to
 the max of u and v, with padded slots exactly 0, the tensor-core kernel
 within 2e-4 of the sparse one and bitwise on a repeat.  The main-path runs
@@ -586,6 +595,101 @@ def _transfer_run(wc, run, what, max_restarts, jax_matvecs, matvec_slack, gm,
     if not resid <= 1.2 * gm.tol:
         _fail(f"{what}: plain-cycle residual {resid:.3e} > {1.2 * gm.tol:.2e}")
     return res, launches
+
+
+def _graph_phase(dev, ddh, counts5, gm) -> None:
+    """Phase 34 on the prepared flagship transfer DDH ``ddh`` of phase 5
+    (whose solves captured the K = 1 apply): the graphed apply against the
+    eager one, the lambda-solve against ``counts5`` and the eager solve, P
+    against P on the eager apply, and the host microseconds of an apply in
+    turns, without and with the profiler."""
+    import torch
+
+    from cuddhelmholtz_tpu_torch.examples.drivers import point_sources
+    from cuddhelmholtz_tpu_torch.models.helmholtz import helmholtz_rhs
+    from cuddhelmholtz_tpu_torch.solvers.ddh import DDHPreconditioner, ddh_action_transfer_rolled
+    from cuddhelmholtz_tpu_torch.solvers.gmres import gmres
+    from cuddhelmholtz_tpu_torch.utils import spans
+
+    t34 = time.perf_counter()
+    if ddh.route is None:
+        _fail("phase 34: the flagship transfer DDH has no roll route")
+
+    def eager(lam):
+        return ddh_action_transfer_rolled(ddh.params, ddh.route, lam, ddh.n_own)
+
+    rng = np.random.default_rng(34)
+
+    def lam_of(K):
+        shape = (ddh.size,) if K == 1 else (K, ddh.size)
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+    spans.reset("ddh.action.")
+    for K in (1, 8):
+        lam = lam_of(K)
+        got = [ddh.action(lam) for _ in range(2)]
+        want = eager(lam)
+        if not all(torch.equal(g, want) for g in got):
+            err = max(float((g - want).abs().max()) for g in got)
+            _fail(f"phase 34: graphed apply at K = {K} differs from the eager one by {err:.3e}")
+    captured = spans.totals("ddh.action.")
+    if captured != {"captures": 1, "graphed": 4}:
+        _fail(f"phase 34: counters {captured}; want one capture (K = 8) and 4 replays")
+
+    b = helmholtz_rhs(ddh.space, lambda xy: point_sources(xy, ddh.omega)).to(dev)
+    out, _ = ddh.solver(gm.m, gm.maxit, gm.tol)(b)
+    ref = gmres(eager, ddh.rhs(b), m=gm.m, maxit=gm.maxit, tol=gm.tol)
+    P = DDHPreconditioner(ddh)
+    v = torch.from_numpy(rng.standard_normal(2 * ddh.g_ndof)).to(dev)
+    p1, p2 = P(v), P(v)
+    v32 = v.to(torch.float32)
+    inner = gmres(eager, ddh.rhs(v32), m=P.inner_m, maxit=P.inner_maxit, tol=0.0)
+    p_eager = ddh.postprocess(inner.x, v32).to(v.dtype)
+    counts = spans.totals("ddh.action.")
+    print(f"phase 34: graphed apply bitwise the eager one at K = 1 and 8; lambda-solve "
+          f"{out.num_iter} / {out.num_matvec} (phase 5 {counts5}, eager {ref.num_iter} / "
+          f"{ref.num_matvec}), x bitwise the eager solve's: {torch.equal(out.x, ref.x)}; P "
+          f"repeats bitwise: {torch.equal(p1, p2)}, bitwise P on the eager apply: "
+          f"{torch.equal(p1, p_eager)}; counters {counts}")
+    if (out.num_iter, out.num_matvec) != counts5 or (ref.num_iter, ref.num_matvec) != counts5:
+        _fail(f"phase 34: lambda-solve {out.num_iter} / {out.num_matvec}, eager "
+              f"{ref.num_iter} / {ref.num_matvec}; want phase 5's {counts5}")
+    if not torch.equal(out.x, ref.x):
+        _fail("phase 34: the graphed lambda-solve is not bitwise the eager one")
+    if not (torch.equal(p1, p2) and torch.equal(p1, p_eager)):
+        _fail("phase 34: P does not repeat bitwise or differs from P on the eager apply")
+    if counts.get("captures") != 1 or counts.get("eager", 0):
+        _fail(f"phase 34: counters {counts}; want no capture after the K = 8 one, no eager")
+
+    lam = lam_of(1)
+
+    def host_us(fn, reps=300):
+        """(enqueue us, us to the device's end) per call of ``fn(lam)``."""
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn(lam)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize(dev)
+        return 1e6 * (t1 - t0) / reps, 1e6 * (time.perf_counter() - t0) / reps
+
+    host_us(eager, 20)
+    host_us(ddh.action, 20)
+    turns = [("eager", host_us(eager)), ("graphed", host_us(ddh.action)),
+             ("graphed", host_us(ddh.action)), ("eager", host_us(eager))]
+    _, dev_eager_ms = _timed(lambda: eager(lam), 300)
+    _, dev_graph_ms = _timed(lambda: ddh.action(lam), 300)
+    # the same turns inside a profiler recording of the device, as the
+    # benchmark's traced windows run
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]):
+        traced = [("eager", host_us(eager, 100)), ("graphed", host_us(ddh.action, 100)),
+                  ("graphed", host_us(ddh.action, 100)), ("eager", host_us(eager, 100))]
+    print("phase 34: host us per K = 1 apply in turns (enqueue, to the device's end): "
+          + "; ".join(f"{n} {e:.1f}, {d:.1f}" for n, (e, d) in turns)
+          + "; under the profiler: "
+          + "; ".join(f"{n} {e:.1f}, {d:.1f}" for n, (e, d) in traced)
+          + f"; CUDA-event ms per apply over 300: eager {dev_eager_ms:.4f}, graphed "
+          f"{dev_graph_ms:.4f}; {time.perf_counter() - t34:.1f} s")
 
 
 def _cache_pair(wc, run, what, cache_dir):
@@ -1709,6 +1813,7 @@ def main() -> int:
     for k in total:
         total[k] += launches[k]
     counts5 = (res5.num_iter, res5.num_matvec)
+    _graph_phase(dev, res5.extra["ddh"], counts5, cfg.gmres)
     del res5
 
     # --- 6. the unstructured square at full size --------------------------------

@@ -38,11 +38,22 @@ non-zeros (``S_sparse``: the flagship, pad 320 and 632, and the per-row
 layout (c)).  The operator decides once, builds only that kernel's form,
 on the first cycle that needs it, and hands it to every later one.
 
+On the card the transfer apply is host-bound: about 40 small launches
+whose device work is a tenth of their host time.  ``action`` therefore
+replays it as one CUDA graph for each input shape and dtype
+(``_ApplyGraph``), captured on the first apply of that shape and kept on
+the operator until a tensor it reads is replaced (``prepare``,
+``set_io_maps``, a reassignment of the route, the transfer stack, a device
+buffer or ``use_transfer``, a ``.to(...)``).  A CPU tensor and the direct
+path run eagerly.
+
 Spans (``utils/spans.py``): ``ddh.init`` (the constructor), ``ddh.prepare``
 and in it ``ddh.groups``, ``ddh.probe`` (one per probe chunk), ``ddh.route``
 and ``ddh.io_maps``; ``ddh.solve`` (one ``solver`` run), ``ddh.rhs``,
 ``ddh.action``, ``ddh.postprocess`` and ``ddh.precond`` (one application
-of ``DDHPreconditioner``).
+of ``DDHPreconditioner``).  Counters: ``ddh.action.graphed`` (each replay),
+``ddh.action.eager`` (each eager transfer apply) and ``ddh.action.captures``
+(each capture).
 """
 
 from __future__ import annotations
@@ -73,7 +84,7 @@ from ..spaces.ensemble import EnsembleSpace, structured_labels
 from ..spaces.h1 import H1Space
 from ..utils.debug import check_finite, check_index_table
 from ..utils.device import check_device  # noqa: F401 (re-exported to the drivers)
-from ..utils.spans import span, spanned
+from ..utils.spans import count, span, spanned
 from .gmres import (
     BlockGmresResult,
     GmresResult,
@@ -131,6 +142,12 @@ class DDHParams(NamedTuple):
 _TENSOR_FIELDS = DDHParams._fields[:13]  # the JAX package's tensor fields
 _ROW_FIELDS = ("gI", "gmask", "F_weight", "Ha", "inv_mi", "m_gmi")  # (ndom, pad)
 _INDEX_FIELDS = ("gI", "fslot", "B0", "B1")
+# the DDH attributes a captured transfer apply reads or depends on: assigning
+# one empties the operator's cache of graphs
+_GRAPH_READS = frozenset((*_TENSOR_FIELDS, "sol_table", "K0", "dt32", "omega32",
+                          "use_transfer", "route", "_T_u", "_T_groups", "_T_dev"))
+# eager applies on a side stream before a capture, as PyTorch documents
+GRAPH_WARMUP = 3
 
 
 def _pad_to(n: int, mult: int) -> int:
@@ -327,6 +344,7 @@ class DDH(nn.Module):
         dtype=torch.float32,
     ):
         super().__init__()
+        self._drop_graphs()
         device = check_device(device)
         if rhs_split not in ("full", "mass"):
             raise ValueError("rhs_split must be 'full' or 'mass'")
@@ -599,19 +617,56 @@ class DDH(nn.Module):
             self._T_dev = torch.as_tensor(self._T_u[self._T_groups], device=self.gmask.device)
         return self._T_dev
 
+    def __setattr__(self, name, value):
+        if name in _GRAPH_READS:
+            self._drop_graphs()
+        super().__setattr__(name, value)
+
+    def _apply(self, *args, **kwargs):
+        # ``.to(...)``, ``.cuda()``, ``.float()``: the buffers are replaced
+        self._drop_graphs()
+        return super()._apply(*args, **kwargs)
+
+    def _drop_graphs(self) -> None:
+        """Empty the cache of captured transfer applies (and let their
+        memory pool go with them)."""
+        self._graphs: dict = {}
+        self._graph_pool = None
+
     def forward(self, lam: torch.Tensor) -> torch.Tensor:
         return self.action(lam)
 
     @spanned("ddh.action")
     def action(self, lam: torch.Tensor) -> torch.Tensor:
-        """y = lambda - S(lambda): the GMRES operator."""
+        """y = lambda - S(lambda): the GMRES operator.  On the transfer path
+        a CUDA tensor replays the apply's graph for its shape and dtype,
+        captured on the first such apply; a CPU tensor runs it eagerly."""
         check_finite("DDH.action input", lam)
-        if self.use_transfer and self.route is not None:
-            return ddh_action_transfer_rolled(self.params, self.route, lam, self.n_own)
-        if self.use_transfer:
-            return ddh_action_transfer(self.params, self.T, lam, self.n_own)
-        return ddh_action(self.params, lam, n_own=self.n_own, wh_maxit=self.wh_maxit,
-                          cycle=self._cycle)
+        if not self.use_transfer:
+            return ddh_action(self.params, lam, n_own=self.n_own, wh_maxit=self.wh_maxit,
+                              cycle=self._cycle)
+        if not lam.is_cuda:
+            count("ddh.action.eager")
+            return self._transfer_apply()(lam)
+        key = (tuple(lam.shape), lam.dtype)
+        graph = self._graphs.get(key)
+        if graph is None:
+            if self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            graph = self._graphs[key] = _ApplyGraph(self._transfer_apply(), lam,
+                                                    self._graph_pool)
+            count("ddh.action.captures")
+        count("ddh.action.graphed")
+        return graph(lam)
+
+    def _transfer_apply(self) -> Callable:
+        """The transfer apply on this operator's current tables: the rolled
+        exchange where a route was found, else the scatter."""
+        params, n_own, route = self.params, self.n_own, self.route
+        if route is not None:
+            return lambda lam: ddh_action_transfer_rolled(params, route, lam, n_own)
+        T = self.T
+        return lambda lam: ddh_action_transfer(params, T, lam, n_own)
 
     @property
     def io_path(self) -> str:
@@ -871,6 +926,7 @@ class DDH(nn.Module):
         nu = int(np.max(groups)) + 1
 
         dtype = self.gmask.dtype
+        self._drop_graphs()
 
         def t(a):
             if not isinstance(a, torch.Tensor):
@@ -1565,6 +1621,39 @@ def ddh_action_transfer_rolled(params: DDHParams, route: RollRoute, lam, n_own: 
         out_l[:, route.irr_tgt] = u2[..., :pf].reshape(K, -1)[:, route.irr_src]
         out_m[:, route.irr_tgt] = u2[..., pf:].reshape(K, -1)[:, route.irr_src]
     return _unblock(lam2 - torch.cat([out_l, out_m], dim=1), lam)
+
+
+class _ApplyGraph:
+    """One transfer apply captured as a CUDA graph for one input shape and
+    dtype: a static input the call copies into, the graph, and its static
+    output, which the call clones, so that a later replay never overwrites a
+    result its caller still holds.  The same kernels run in the same order
+    as the eager apply, so a replay equals it bit for bit.
+
+    The graphs of one operator share one memory pool.  That is safe here
+    because every replay writes each of its intermediates before it reads
+    it, and its output is cloned before the next replay on the stream."""
+
+    def __init__(self, apply: Callable, lam: torch.Tensor, pool):
+        self.x = lam.clone()
+        self.graph = torch.cuda.CUDAGraph()
+        capture = torch.cuda.graph(self.graph, pool=pool)
+        # warm up on the capture's stream, one for every capture in the
+        # process: cuBLAS keeps a workspace for each stream it has run on,
+        # so a new side stream per capture would hold 32 MiB more each time
+        side = capture.capture_stream
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(GRAPH_WARMUP):
+                apply(self.x)
+        torch.cuda.current_stream().wait_stream(side)
+        with capture:
+            self.y = apply(self.x)
+
+    def __call__(self, lam: torch.Tensor) -> torch.Tensor:
+        self.x.copy_(lam)
+        self.graph.replay()
+        return self.y.clone()
 
 
 def ddh_rhs_io(params: DDHParams, io: IOMaps, f, g_ndof: int, n_lambda: int):
