@@ -12,7 +12,8 @@ lambda layout and the dense assembled subdomain stiffness.  Device state is
 float32 (``DDH(dtype=)``: float64 runs the plain cycle on the CPU; the
 kernels take float32 only).  Two paths:
 
-  * direct: every ``action``, ``rhs`` and ``postprocess`` runs one wave cycle
+  * direct (upstream's own algorithm; no ``prepare``, no maps): every
+    ``action``, ``rhs`` and ``postprocess`` runs one wave cycle
     (``ops/cuda/wave_cycle.py``; one kernel launch on a GPU);
   * transfer/io (``prepare``): one-hot probe columns go through the wave
     cycle once per unique subdomain, giving the per-subdomain trace-transfer
@@ -51,7 +52,8 @@ Spans (``utils/spans.py``): ``ddh.init`` (the constructor), ``ddh.prepare``
 and in it ``ddh.groups``, ``ddh.probe`` (one per probe chunk), ``ddh.route``
 and ``ddh.io_maps``; ``ddh.solve`` (one ``solver`` run), ``ddh.rhs``,
 ``ddh.action``, ``ddh.postprocess`` and ``ddh.precond`` (one application
-of ``DDHPreconditioner``).  Counters: ``ddh.action.graphed`` (each replay),
+of ``DDHPreconditioner``).  Counters: ``ddh.action.direct`` (each direct
+apply, one wave cycle), ``ddh.action.graphed`` (each replay),
 ``ddh.action.eager`` (each eager transfer apply) and ``ddh.action.captures``
 (each capture).
 """
@@ -638,11 +640,14 @@ class DDH(nn.Module):
 
     @spanned("ddh.action")
     def action(self, lam: torch.Tensor) -> torch.Tensor:
-        """y = lambda - S(lambda): the GMRES operator.  On the transfer path
-        a CUDA tensor replays the apply's graph for its shape and dtype,
-        captured on the first such apply; a CPU tensor runs it eagerly."""
+        """y = lambda - S(lambda): the GMRES operator.  On the direct path
+        (no ``prepare``) one wave cycle, counted ``ddh.action.direct``.  On
+        the transfer path a CUDA tensor replays the apply's graph for its
+        shape and dtype, captured on the first such apply; a CPU tensor runs
+        it eagerly."""
         check_finite("DDH.action input", lam)
         if not self.use_transfer:
+            count("ddh.action.direct")
             return ddh_action(self.params, lam, n_own=self.n_own, wh_maxit=self.wh_maxit,
                               cycle=self._cycle)
         if not lam.is_cuda:
