@@ -197,6 +197,16 @@ subprocesses too.
    bitwise on repeat and bitwise P on the eager apply; then the host
    microseconds of an apply, eager and graphed, timed in turns, and the
    same inside a ``torch.profiler`` recording of the device.
+35. (Right after phase 34, on phase 5's operator.)  The GMRES restart's
+   per-step bookkeeping replayed as CUDA graphs (``_step_graph_phase``):
+   the lambda-solve with graphed and with eager steps, phase 5's counts on
+   both, x and history bitwise, no capture and no eager step on the graphed
+   path; host ms per step of both in turns and CUDA-event ms of one step's
+   bookkeeping (a replay against the eager step); ``helmholtz_ddh_1e6`` on
+   both paths (11 / 235); on its DDH the benchmark's float64 FGMRES(20) to
+   1e-6 through ``ddh_solve_hook``, bitwise on both paths, with its ms per
+   step.  ``python3 -c 'import chip_smoke, sys; sys.exit(chip_smoke.phase_35())'``
+   runs phases 1, 5 and 35 alone.
 Every comparison holds a kernel within 2e-4 of the plain cycle relative to
 the max of u and v, with padded slots exactly 0, the tensor-core kernel
 within 2e-4 of the sparse one and bitwise on a repeat.  The main-path runs
@@ -691,6 +701,207 @@ def _graph_phase(dev, ddh, counts5, gm) -> None:
           + f"; CUDA-event ms per apply over 300: eager {dev_eager_ms:.4f}, graphed "
           f"{dev_graph_ms:.4f}; {time.perf_counter() - t34:.1f} s")
 
+
+
+def _eager_steps():
+    """A context in which every GMRES restart runs its steps eagerly (the
+    step graphs' cache hands out no workspace)."""
+    import contextlib
+
+    from cuddhelmholtz_tpu_torch.solvers import gmres as gmres_mod
+
+    @contextlib.contextmanager
+    def ctx():
+        take = gmres_mod._workspace
+        gmres_mod._workspace = lambda r, m, reorth: None
+        try:
+            yield
+        finally:
+            gmres_mod._workspace = take
+
+    return ctx()
+
+
+def _step_graph_phase(dev, ddh, counts5, gm) -> None:
+    """Phase 35 on the prepared flagship transfer DDH ``ddh`` of phase 5
+    (whose solves captured the λ key's step graphs): the λ-solve with graphed
+    and with eager steps (phase 5's counts, x bitwise), host ms per step of
+    both in turns, CUDA-event device ms of one step's bookkeeping (a replay
+    against the eager step); then the composite: ``helmholtz_ddh_1e6``
+    (11 / 235 on both paths) and, on its DDH, the benchmark's float64
+    FGMRES(20) to 1e-6 through ``ddh_solve_hook`` (bitwise on both paths)."""
+    import torch
+
+    from cuddhelmholtz_tpu_torch.config import HELMHOLTZ_DDH_1E6 as hcfg
+    from cuddhelmholtz_tpu_torch.examples.drivers import (
+        point_sources,
+        run_config,
+        wave_speed_coeff,
+    )
+    from cuddhelmholtz_tpu_torch.mesh.mesh2d import Mesh2D
+    from cuddhelmholtz_tpu_torch.models.helmholtz import (
+        apply_helmholtz,
+        helmholtz_rhs,
+        make_helmholtz_op,
+        project_coefficients,
+    )
+    from cuddhelmholtz_tpu_torch.models.inverse import ddh_solve_hook
+    from cuddhelmholtz_tpu_torch.ops.structured import GridH1Space
+    from cuddhelmholtz_tpu_torch.solvers import gmres as gmres_mod
+    from cuddhelmholtz_tpu_torch.spaces.h1 import FaceSpace
+    from cuddhelmholtz_tpu_torch.utils import spans
+    from cuddhelmholtz_tpu_torch.utils.basis import Basis
+
+    t35 = time.perf_counter()
+    step = "gmres.step."
+    b = helmholtz_rhs(ddh.space, lambda xy: point_sources(xy, ddh.omega)).to(dev)
+    y = ddh.rhs(b)
+
+    def lam_solve():
+        return gmres_mod.gmres(ddh.action, y, m=gm.m, maxit=gm.maxit, tol=gm.tol)
+
+    def host_ms(eager: bool):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        if eager:
+            with _eager_steps():
+                out = lam_solve()
+        else:
+            out = lam_solve()
+        torch.cuda.synchronize(dev)
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    # the λ key's captures: a first solve on a fresh cache against the next
+    cached = dict(gmres_mod._WORKSPACES)
+    gmres_mod._WORKSPACES.clear()
+    spans.reset(step)
+    _, first_ms = host_ms(False)
+    captures = spans.total(step + "captures")
+    _, next_ms = host_ms(False)
+    gmres_mod._WORKSPACES.clear()
+    gmres_mod._WORKSPACES.update(cached)
+    print(f"phase 35: a first lambda-solve on an empty cache {first_ms:.1f} ms with {captures} "
+          f"captures, the next {next_ms:.1f} ms: {(first_ms - next_ms) / captures:.2f} ms a capture")
+    spans.reset(step)
+    graphed, _ = host_ms(False)
+    got = spans.totals(step)
+    eager, _ = host_ms(True)
+    steps = graphed.num_matvec - 1 - graphed.num_iter
+    same = (torch.equal(graphed.x, eager.x)
+            and torch.equal(graphed.res_norm[: graphed.n_hist], eager.res_norm[: eager.n_hist]))
+    print(f"phase 35: lambda-solve graphed {graphed.num_iter} / {graphed.num_matvec}, eager "
+          f"{eager.num_iter} / {eager.num_matvec} (phase 5 {counts5}); x and history bitwise: "
+          f"{same}; counters of the graphed solve {got}")
+    if (graphed.num_iter, graphed.num_matvec) != counts5 or (
+            eager.num_iter, eager.num_matvec) != counts5:
+        _fail(f"phase 35: counts {graphed.num_iter} / {graphed.num_matvec} graphed, "
+              f"{eager.num_iter} / {eager.num_matvec} eager; want phase 5's {counts5}")
+    if not same:
+        err = float((graphed.x - eager.x).abs().max() / eager.x.abs().max())
+        _fail(f"phase 35: the graphed lambda-solve is not bitwise the eager one (x {err:.3e})")
+    if got != {"graphed": steps}:
+        _fail(f"phase 35: counters {got}; want {steps} replays, no capture, no eager step")
+    turns = [(name, host_ms(name == "eager")[1] / steps)
+             for name in ("graphed", "eager", "eager", "graphed")]
+    # one step's bookkeeping on the device: replays of the captured step
+    # against the eager step on copies of the same state
+    (ws,) = [w for (n, m, dt, _, reorth), w in gmres_mod._WORKSPACES.items()
+             if (n, m, dt, reorth) == (y.shape[0], gm.m, y.dtype, True)]
+    k = gm.m // 2
+    state = [t.clone() for t in ws.state()]
+    w = ws.w.clone()
+    _, replay_ms = _timed(lambda: ws.graphs[k].replay(), 300)
+    _, eager_ms = _timed(lambda: gmres_mod._arnoldi_givens(*state, w, k, True), 300)
+    print("phase 35: host ms per lambda step in turns (untraced, matvec included): "
+          + "; ".join(f"{n} {t:.4f}" for n, t in turns)
+          + f"; step {k}'s bookkeeping, CUDA-event ms over 300: replay {replay_ms:.4f}, eager "
+          f"{eager_ms:.4f}; step graphs kept: {sum(g is not None for g in ws.graphs)} of "
+          f"{gm.m}")
+
+    # the composite, graphed and eager: counts and solution
+    spans.reset(step)
+    res = run_config(hcfg, device=dev, measure_warm=False)
+    got = spans.totals(step)
+    with _eager_steps():
+        res_e = run_config(hcfg, device=dev, measure_warm=False)
+    counts = (res.num_iter, res.num_matvec)
+    print(f"phase 35: helmholtz_ddh_1e6 graphed {counts} in {res.seconds:.3f} s, eager "
+          f"{(res_e.num_iter, res_e.num_matvec)} in {res_e.seconds:.3f} s; solution bitwise: "
+          f"{np.array_equal(res.solution, res_e.solution)}; counters of the graphed run {got}")
+    if counts != (11, 235) or (res_e.num_iter, res_e.num_matvec) != (11, 235):
+        _fail(f"phase 35: helmholtz_ddh_1e6 {counts} graphed, "
+              f"{(res_e.num_iter, res_e.num_matvec)} eager; want (11, 235)")
+    if not got.get("graphed"):
+        _fail(f"phase 35: helmholtz_ddh_1e6 replayed no step graph ({got})")
+
+    # the benchmark's composite solve on that DDH: standard float64 FGMRES(20)
+    hddh = res.extra["ddh"]
+    nx = hcfg.nx
+    mesh = Mesh2D.uniform_rect(nx, -1.0, 1.0, nx, -1.0, 1.0)
+    fem = GridH1Space(mesh, Basis(hcfg.deg + 1), nx, nx)
+    fs = FaceSpace(fem, mesh.boundary_edges)
+    a2, af = project_coefficients(fem, fs, wave_speed_coeff)
+    op = make_helmholtz_op(res.extra["omega"], a2, af, fem, fs, dtype=torch.float64, device=dev)
+    hb = helmholtz_rhs(fem, lambda xy: point_sources(xy, res.extra["omega"])).to(dev)
+
+    def composite(eager: bool):
+        hook = ddh_solve_hook(hddh, m=hcfg.gmres.m, maxit=hcfg.gmres.maxit, tol=hcfg.gmres.tol)
+        spans.reset(step)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        if eager:
+            with _eager_steps():
+                x = hook(lambda U: apply_helmholtz(op, U), hb)
+        else:
+            x = hook(lambda U: apply_helmholtz(op, U), hb)
+        torch.cuda.synchronize(dev)
+        return x, hook, time.perf_counter() - t0, spans.totals(step)
+
+    xg, hg, sg, cg = composite(False)
+    xe, he, se, ce = composite(True)
+    rg, re_ = hg.results[-1], he.results[-1]
+    same = torch.equal(xg, xe) and torch.equal(rg.res_norm[: rg.n_hist],
+                                               re_.res_norm[: re_.n_hist])
+    rel = float(torch.linalg.vector_norm(hb - apply_helmholtz(op, xg))
+                / torch.linalg.vector_norm(hb))
+    print(f"phase 35: composite FGMRES(20) to 1e-6 through ddh_solve_hook: graphed "
+          f"{rg.num_iter} / {rg.num_matvec}, {hg.precond.calls} P, {sg:.3f} s "
+          f"({1e3 * sg / hg.precond.calls:.2f} ms a step, counters {cg}); eager "
+          f"{re_.num_iter} / {re_.num_matvec}, {he.precond.calls} P, {se:.3f} s "
+          f"({1e3 * se / he.precond.calls:.2f} ms a step, counters {ce}); x and history "
+          f"bitwise: {same}; relative residual {rel:.3e}; {time.perf_counter() - t35:.1f} s")
+    if (rg.num_iter, rg.num_matvec, hg.precond.calls) != (
+            re_.num_iter, re_.num_matvec, he.precond.calls) or not same:
+        _fail("phase 35: the graphed composite solve is not the eager one")
+    if ce.get("graphed") or cg.get("eager") or not rel <= 1.2e-6:
+        _fail(f"phase 35: counters graphed {cg}, eager {ce}; residual {rel:.3e}")
+
+
+def phase_35() -> int:
+    """Phases 1 (the build), 5 (the flagship transfer solve) and 35 alone:
+    ``python3 -c 'import chip_smoke, sys; sys.exit(chip_smoke.phase_35())'``."""
+    import torch
+
+    from cuddhelmholtz_tpu_torch.config import DDH_STRUCTURED as cfg
+    from cuddhelmholtz_tpu_torch.examples.drivers import run_ddh
+    from cuddhelmholtz_tpu_torch.ops.cuda import wave_cycle as wc
+
+    os.environ["CUDDH_CACHE_DIR"] = ""
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip()
+    print(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    for variant in wc.build():
+        wc._library(variant)
+    res5 = run_ddh(nx=cfg.nx, deg=cfg.deg, m=cfg.gmres.m, maxit=cfg.gmres.maxit,
+                   tol=cfg.gmres.tol, wh_maxit=cfg.wh_maxit, block_size=cfg.block_size,
+                   transfer=True, device=dev)
+    print(f"phase 5: {res5.num_iter} / {res5.num_matvec}, solve {res5.seconds:.3f} s")
+    _step_graph_phase(dev, res5.extra["ddh"], (res5.num_iter, res5.num_matvec), cfg.gmres)
+    print(smi)
+    return 0
 
 def _cache_pair(wc, run, what, cache_dir):
     """Run ``run`` twice in the cache directory ``cache_dir``: a miss, then a
@@ -1814,6 +2025,7 @@ def main() -> int:
         total[k] += launches[k]
     counts5 = (res5.num_iter, res5.num_matvec)
     _graph_phase(dev, res5.extra["ddh"], counts5, cfg.gmres)
+    _step_graph_phase(dev, res5.extra["ddh"], counts5, cfg.gmres)
     del res5
 
     # --- 6. the unstructured square at full size --------------------------------

@@ -29,13 +29,22 @@ compare one to one:
 
 The loops run on the host.  The standard mode reads its exit flag once per
 Arnoldi step; the deferred mode only once per restart.  The vectors and the
-small least-squares algebra stay on ``b``'s device.  Every blocking host read
-of every variant goes through ``_read``, which counts it in
-``gmres.host_syncs`` and spans it as ``gmres.sync`` (``utils/spans.py``);
-each solve is the span ``gmres.solve`` and each Arnoldi step, its matvec
-included, ``gmres.step`` (one block step in ``block_gmres``).  The JAX package's
-``unroll`` option has no counterpart: the eager loop already reads only the
-populated rows of the basis.
+small least-squares algebra stay on ``b``'s device.  On a CUDA device the
+standard restart (``gmres``, ``fgmres``, ``gmres_host``, ``lgmres``) replays
+each step's bookkeeping, everything between the matvec and the exit read, as
+one CUDA graph per (step index, n, m, dtype, device, reorth), captured the
+first time a solve reaches it (``_StepGraphs``); the matvec stays outside the
+graph.  It runs eagerly on the CPU, where ``r`` or the matvec's output needs
+grad, and in a solve nested inside another of the same key.  The deferred
+restart, ``block_gmres`` and ``gmres_lockstep`` run every step eagerly.  The
+counters ``gmres.step.graphed``, ``gmres.step.eager`` (every eager step,
+block and lock steps included) and ``gmres.step.captures`` say which ran.
+Every blocking host read of every variant goes through ``_read``, which
+counts it in ``gmres.host_syncs`` and spans it as ``gmres.sync``
+(``utils/spans.py``); each solve is the span ``gmres.solve`` and each
+Arnoldi step, its matvec included, ``gmres.step`` (one block step in
+``block_gmres``).  The JAX package's ``unroll`` option has no counterpart:
+the loop already reads only the populated rows of the basis.
 
 Two variants share the standard restart (``_restart``):
 
@@ -61,6 +70,7 @@ from __future__ import annotations
 import math
 import sys
 import time
+from collections import OrderedDict
 from typing import Callable, NamedTuple
 
 import torch
@@ -117,55 +127,177 @@ def _step_matvec(matvec, precond, V, Z, k, vin=None):
     return matvec(Z[k])
 
 
+def _arnoldi_givens(V, Q, R, eta, tol_bnrm, flag, w, k: int, reorth: bool) -> None:
+    """Arnoldi/Givens step k of a standard restart, in place: CGS (or CGS2)
+    of the matvec's output ``w`` against ``V[: k + 1]``, its normalisation
+    into ``V[k + 1]``, the Givens update of ``Q``, ``R`` and ``eta``, and
+    into the one-element ``flag`` whether the restart stops here (the
+    rotated residual ``|eta[k + 1]|`` under ``tol_bnrm``, or a breakdown).
+    It reads nothing on the host, so it can be captured as a CUDA graph."""
+    m1 = eta.shape[0]
+    # rows beyond k are not read
+    h, w = _orthogonalize(V[: k + 1], w, reorth)
+    hk1 = norm(w)
+    breakdown = hk1 == 0.0
+    V[k + 1] = torch.where(breakdown, w, w / torch.where(breakdown, torch.ones_like(hk1), hk1))
+    # rotate the new Hessenberg column by the accumulated rotations
+    hc = torch.zeros(m1, dtype=V.dtype, device=V.device)
+    hc[: k + 1] = h
+    hc[k + 1] = hk1
+    col = Q @ hc
+    a, b = col[k], col[k + 1]
+    t = torch.hypot(a, b)
+    safe = t > 0.0
+    one = torch.ones_like(t)
+    c = torch.where(safe, a / torch.where(safe, t, one), one)
+    s = torch.where(safe, b / torch.where(safe, t, one), torch.zeros_like(t))
+    R[: k + 1, k] = col[: k + 1]
+    R[k, k] = c * col[k] + s * col[k + 1]
+    # Q <- G Q: only rows k and k+1 change
+    qk, qk1 = Q[k].clone(), Q[k + 1].clone()
+    Q[k] = c * qk + s * qk1
+    Q[k + 1] = -s * qk + c * qk1
+    ek = eta[k].clone()
+    eta[k + 1] = -s * ek
+    eta[k] = c * ek
+    flag.copy_((eta[k + 1].abs() < tol_bnrm) | breakdown)
+
+
+class _StepGraphs:
+    """The static state of the standard restart for one key (n, m, dtype,
+    device, reorth), and the graphs of its Arnoldi/Givens steps: graph k
+    replays ``_arnoldi_givens`` at step k on the static ``V``, ``Q``, ``R``,
+    ``eta``, ``tol``, ``flag`` and the matvec's output copied into ``w``.
+    Graph k is captured the first time a restart of this key reaches step
+    k.  The same kernels run on the same shapes as the eager step, so a
+    replay equals it bit for bit.  ``busy`` marks the state as held by a
+    running restart."""
+
+    def __init__(self, r: torch.Tensor, m: int, reorth: bool):
+        n, dtype, dev = r.shape[0], r.dtype, r.device
+        self.reorth, self.busy = reorth, False
+        self.V = torch.zeros((m + 1, n), dtype=dtype, device=dev)
+        self.eye = torch.eye(m + 1, dtype=dtype, device=dev)
+        self.Q = self.eye.clone()
+        self.R = torch.zeros((m, m), dtype=dtype, device=dev)
+        self.eta = torch.zeros(m + 1, dtype=dtype, device=dev)
+        self.tol = torch.zeros((), dtype=dtype, device=dev)
+        self.flag = torch.zeros((), dtype=torch.bool, device=dev)
+        self.w = torch.zeros(n, dtype=dtype, device=dev)
+        self.graphs: list = [None] * m
+        self.pool = torch.cuda.graph_pool_handle()
+
+    def state(self) -> tuple:
+        return self.V, self.Q, self.R, self.eta, self.tol, self.flag
+
+    def start(self, r, r_nrm, tol_bnrm) -> None:
+        """Fill the state for a new restart from residual ``r``, as
+        ``_basis`` and the eager restart do."""
+        self.V[0] = r / torch.where(r_nrm > 0.0, r_nrm, torch.ones_like(r_nrm))
+        self.Q.copy_(self.eye)
+        self.R.zero_()
+        self.eta.zero_()
+        self.eta[0] = r_nrm
+        self.tol.copy_(tol_bnrm)
+
+    def step(self, w: torch.Tensor, k: int) -> None:
+        self.w.copy_(w)
+        if self.graphs[k] is None:
+            self.graphs[k] = self._capture(k)
+        self.graphs[k].replay()
+        count("gmres.step.graphed")
+
+    def _capture(self, k: int):
+        count("gmres.step.captures")
+        graph = torch.cuda.CUDAGraph()
+        # warm up and capture on torch's capture stream, one for every
+        # capture in the process (cuBLAS keeps a workspace per stream), and
+        # without torch.cuda.graph's synchronize and empty_cache per capture
+        side = torch.cuda.graph(graph, pool=self.pool).capture_stream
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            # the warm-up writes copies: the step updates its state in place
+            _arnoldi_givens(*(t.clone() for t in self.state()), self.w.clone(), k, self.reorth)
+            graph.capture_begin(self.pool)
+            try:
+                _arnoldi_givens(*self.state(), self.w, k, self.reorth)
+            finally:
+                graph.capture_end()
+        torch.cuda.current_stream().wait_stream(side)
+        return graph
+
+
+_KEEP = 4  # keys whose step graphs are kept, the oldest dropped first
+_WORKSPACES: OrderedDict = OrderedDict()
+
+
+def _workspace(r: torch.Tensor, m: int, reorth: bool) -> _StepGraphs | None:
+    """The step graphs of ``r``'s key, marked busy, for a restart on a CUDA
+    tensor that needs no grad; None (run eagerly) for any other, or while a
+    running restart holds that key's state (a nested solve)."""
+    if not r.is_cuda or (torch.is_grad_enabled() and r.requires_grad):
+        return None
+    key = (r.shape[0], m, r.dtype, r.device, reorth)
+    ws = _WORKSPACES.get(key)
+    if ws is None:
+        ws = _WORKSPACES[key] = _StepGraphs(r, m, reorth)
+        while len(_WORKSPACES) > _KEEP:
+            _WORKSPACES.popitem(last=False)
+    elif ws.busy:
+        return None
+    _WORKSPACES.move_to_end(key)
+    ws.busy = True
+    return ws
+
+
 def _restart(matvec, r, r_nrm, m, tol_bnrm, nmv, reorth=True, precond=None, vin=None):
     """One Arnoldi/Givens cycle of at most m steps from residual ``r``;
     returns the correction (V[:k] y, or Z[:k] y over the directions A was
-    applied to, with ``precond`` or ``vin``) and the matvec count."""
+    applied to, with ``precond`` or ``vin``) and the matvec count.
+
+    On a CUDA ``r`` each step's bookkeeping replays a captured graph
+    (``_StepGraphs``) while neither ``r`` nor the matvec's output needs
+    grad; otherwise it runs ``_arnoldi_givens`` eagerly."""
     dtype, dev = r.dtype, r.device
-    m1 = m + 1
-    V, Z = _basis(r, r_nrm, m, precond is not None or vin is not None)
-    Q = torch.eye(m1, dtype=dtype, device=dev)
-    R = torch.zeros((m, m), dtype=dtype, device=dev)
-    eta = torch.zeros(m1, dtype=dtype, device=dev)
-    eta[0] = r_nrm
-    k_used = 0
-    for k in range(m):
-        with span("gmres.step"):
-            w = _step_matvec(matvec, precond, V, Z, k, vin)
-            nmv += 1
-            # rows beyond k are zero, so only the populated rows are read
-            h, w = _orthogonalize(V[: k + 1], w, reorth)
-            hk1 = norm(w)
-            breakdown = hk1 == 0.0
-            V[k + 1] = torch.where(breakdown, w,
-                                   w / torch.where(breakdown, torch.ones_like(hk1), hk1))
-            # rotate the new Hessenberg column by the accumulated rotations
-            hc = torch.zeros(m1, dtype=dtype, device=dev)
-            hc[: k + 1] = h
-            hc[k + 1] = hk1
-            col = Q @ hc
-            a, b = col[k], col[k + 1]
-            t = torch.hypot(a, b)
-            safe = t > 0.0
-            one = torch.ones_like(t)
-            c = torch.where(safe, a / torch.where(safe, t, one), one)
-            s = torch.where(safe, b / torch.where(safe, t, one), torch.zeros_like(t))
-            R[: k + 1, k] = col[: k + 1]
-            R[k, k] = c * col[k] + s * col[k + 1]
-            # Q <- G Q: only rows k and k+1 change
-            qk, qk1 = Q[k].clone(), Q[k + 1].clone()
-            Q[k] = c * qk + s * qk1
-            Q[k + 1] = -s * qk + c * qk1
-            ek = eta[k].clone()
-            eta[k + 1] = -s * ek
-            eta[k] = c * ek
-            k_used = k + 1
-            stop = _read((eta[k + 1].abs() < tol_bnrm) | breakdown)
-        if stop:
-            break
-    y = torch.linalg.solve_triangular(R[:k_used, :k_used], eta[:k_used, None], upper=True)[:, 0]
-    D = V if Z is None else Z
-    return D[:k_used].T @ y, nmv
+    flexible = precond is not None or vin is not None
+    ws = _workspace(r, m, reorth)
+    try:
+        if ws is None:
+            V, Z = _basis(r, r_nrm, m, flexible)
+            Q = torch.eye(m + 1, dtype=dtype, device=dev)
+            R = torch.zeros((m, m), dtype=dtype, device=dev)
+            eta = torch.zeros(m + 1, dtype=dtype, device=dev)
+            eta[0] = r_nrm
+            tol, flag = tol_bnrm, torch.zeros((), dtype=torch.bool, device=dev)
+        else:
+            ws.start(r, r_nrm, tol_bnrm)
+            V, Q, R, eta, tol, flag = ws.state()
+            Z = torch.zeros((m, r.shape[0]), dtype=dtype, device=dev) if flexible else None
+        k_used = 0
+        for k in range(m):
+            with span("gmres.step"):
+                w = _step_matvec(matvec, precond, V, Z, k, vin)
+                nmv += 1
+                if ws is not None and torch.is_grad_enabled() and w.requires_grad:
+                    # the rest of the restart runs eagerly, on copies
+                    V, Q, R, eta, tol, flag = (t.clone() for t in ws.state())
+                    ws.busy, ws = False, None
+                if ws is None:
+                    _arnoldi_givens(V, Q, R, eta, tol, flag, w, k, reorth)
+                    count("gmres.step.eager")
+                else:
+                    ws.step(w, k)
+                k_used = k + 1
+                stop = _read(flag)
+            if stop:
+                break
+        y = torch.linalg.solve_triangular(R[:k_used, :k_used], eta[:k_used, None],
+                                          upper=True)[:, 0]
+        D = V if Z is None else Z
+        return D[:k_used].T @ y, nmv
+    finally:
+        if ws is not None:
+            ws.busy = False
 
 
 def _restart_deferred(matvec, r, r_nrm, m, nmv, reorth=True, precond=None):
@@ -184,6 +316,7 @@ def _restart_deferred(matvec, r, r_nrm, m, nmv, reorth=True, precond=None):
             V[k + 1] = torch.where(ok, w / torch.where(ok, hk1, torch.ones_like(hk1)), w)
             H[: k + 1, k] = h
             H[k + 1, k] = hk1
+            count("gmres.step.eager")
     N = H.T @ H
     ridge = 1e-7 * (torch.trace(N) / m + 1e-30)
     L = torch.linalg.cholesky(N + ridge * torch.eye(m, dtype=dtype, device=dev))
@@ -510,6 +643,7 @@ def block_gmres(
                 Hb[hi:hi + K, lo:hi] = Lj.T
                 W[hi:hi + K] = Vn
                 nmv += K
+                count("gmres.step.eager")
         N = Hb.T @ Hb
         ridge = 1e-7 * (torch.trace(N) / N.shape[0] + 1e-30)
         eye = torch.eye(N.shape[0], dtype=dtype, device=dev)
@@ -598,6 +732,7 @@ def _lockstep_restart(matvec, r, r_nrm, m, tol_b, nmv, frozen, reorth):
             nmv = nmv + act.long()
             used = used + act.long()
             done = done | (act & ((eta[lanes, k + 1].abs() < tol_b) | breakdown))
+            count("gmres.step.eager")
     # a lane's rhs past its last step is 0 (the solo solve reads eta[:used])
     rhs = torch.where(torch.arange(m, device=dev) < used[:, None], eta[:, :m], 0.0)
     y = torch.linalg.solve_triangular(R, rhs[..., None], upper=True)[..., 0]
@@ -629,6 +764,7 @@ def _lockstep_restart_deferred(matvec, r, r_nrm, m, nmv, frozen, reorth):
             V[:, k + 1] = torch.where(ok[:, None], w / safe[:, None], w)
             H[:, : k + 1, k] = h
             H[:, k + 1, k] = hk1
+            count("gmres.step.eager")
     live = (~frozen).nonzero()[:, 0]
     Hl = H[live]
     N = Hl.transpose(1, 2) @ Hl
