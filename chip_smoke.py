@@ -206,7 +206,7 @@ subprocesses too.
    both paths (11 / 235); on its DDH the benchmark's float64 FGMRES(20) to
    1e-6 through ``ddh_solve_hook``, bitwise on both paths, with its ms per
    step.  ``python3 -c 'import chip_smoke, sys; sys.exit(chip_smoke.phase_35())'``
-   runs phases 1, 5 and 35 alone.
+   runs phases 1, 5, 34 and 35 alone.
 Every comparison holds a kernel within 2e-4 of the plain cycle relative to
 the max of u and v, with padded slots exactly 0, the tensor-core kernel
 within 2e-4 of the sparse one and bitwise on a repeat.  The main-path runs
@@ -344,13 +344,24 @@ def _compare(wc, p, F, G, wh_maxit, pad_mask, what, variants, reps=3, form=None,
     cycle is timed on its checked call; the kernels after their checked
     calls, in turns (v0, v1, ..., v1, v0), ``reps`` launches a turn, so
     each pair is compared on the card's state of the moment.  ``form`` and
-    ``tiles`` are the sparse and tensor-core kernels' prebuilt forms; with
-    both kernels the tensor-core one is also held to the sparse one (2e-4)
-    and must repeat bitwise.  ``"sparse_tiled"`` runs a per-row stack on
-    the sparse kernel with each row tiled x8 onto layout (b), as the JAX
-    solver does (and the port did before its per-row instance), and reads
-    every 8th row back."""
+    ``tiles`` are the sparse and tensor-core kernels' prebuilt forms (None:
+    ``k1_kernel`` builds them, before the runs); with both kernels the
+    tensor-core one is also held to the sparse one (2e-4) and must repeat
+    bitwise.  ``"sparse_tiled"`` runs a per-row stack on the sparse kernel
+    with each row tiled x8 onto layout (b), as the JAX solver does (and
+    the port did before its per-row instance), and reads every 8th row
+    back."""
     import torch
+
+    given = {"sparse": form, "mma": tiles}
+    per_row = p.S.dim() == 3 and kw.get("s_group_size") is None
+
+    def kernel(v):
+        if given.get(v) is not None:
+            return wc.K1(v, given[v])
+        return wc.k1_kernel(p.S, per_row=per_row, variant=v)
+
+    kernels = {v: kernel("sparse" if v == "sparse_tiled" else v) for v in variants}
 
     def run(v):
         if v == "sparse_tiled":
@@ -358,10 +369,9 @@ def _compare(wc, p, F, G, wh_maxit, pad_mask, what, variants, reps=3, form=None,
             tiled = p._replace(Ha=p.Ha.repeat_interleave(r, 0),
                                inv_mi=p.inv_mi.repeat_interleave(r, 0))
             u, v = wc.wave_cycle(tiled, F.repeat_interleave(r, 0), G.repeat_interleave(r, 0),
-                                 wh_maxit, r, variant="sparse", sparse=form)
+                                 wh_maxit, r, kernel=kernels[v])
             return u[::r], v[::r]
-        return wc.wave_cycle(p, F, G, wh_maxit, variant=v, sparse=form if v == "sparse" else None,
-                             tiles=tiles if v == "mma" else None, **kw)
+        return wc.wave_cycle(p, F, G, wh_maxit, kernel=kernels[v], **kw)
 
     outs = {v: run(v) for v in variants}
     torch.cuda.synchronize()
@@ -466,17 +476,11 @@ def _rates(what, flop_sparse, rows, pad, nt, wh_maxit, res, bound, by):
               for v, (_, ms) in res.items()))
 
 
-def _k1(wc, ddh) -> str:
-    """The kernel the DDH's cycles and probes run by default in layouts (a)
-    and (b) (``default_variant`` of its shared S, or of the unique
-    subdomains' matrices its probes read): ``"mma"`` where
-    ``mma_preferred`` holds, else ``"sparse"``."""
-    import torch
-
-    if ddh.S.dim() == 2:
-        return wc.default_variant(ddh.S)
-    uidx, _, _ = ddh._domain_groups()
-    return wc.default_variant(ddh.S, torch.as_tensor(uidx, device=ddh.S.device))
+def _k1(ddh) -> str:
+    """The kernel the DDH's probes (and a shared S's cycles) run in layouts
+    (a) and (b), ``DDH.k1_probe``: ``"mma"`` where ``mma_preferred``
+    holds, else ``"sparse"``."""
+    return ddh.k1_probe.variant
 
 
 def _only_k1(launches, key, what, want):
@@ -878,8 +882,8 @@ def _step_graph_phase(dev, ddh, counts5, gm) -> None:
 
 
 def phase_35() -> int:
-    """Phases 1 (the build), 5 (the flagship transfer solve) and 35 alone:
-    ``python3 -c 'import chip_smoke, sys; sys.exit(chip_smoke.phase_35())'``."""
+    """Phases 1 (the build), 5 (the flagship transfer solve), 34 and 35
+    alone: ``python3 -c 'import chip_smoke, sys; sys.exit(chip_smoke.phase_35())'``."""
     import torch
 
     from cuddhelmholtz_tpu_torch.config import DDH_STRUCTURED as cfg
@@ -899,7 +903,9 @@ def phase_35() -> int:
                    tol=cfg.gmres.tol, wh_maxit=cfg.wh_maxit, block_size=cfg.block_size,
                    transfer=True, device=dev)
     print(f"phase 5: {res5.num_iter} / {res5.num_matvec}, solve {res5.seconds:.3f} s")
-    _step_graph_phase(dev, res5.extra["ddh"], (res5.num_iter, res5.num_matvec), cfg.gmres)
+    counts5 = (res5.num_iter, res5.num_matvec)
+    _graph_phase(dev, res5.extra["ddh"], counts5, cfg.gmres)
+    _step_graph_phase(dev, res5.extra["ddh"], counts5, cfg.gmres)
     print(smi)
     return 0
 
@@ -985,7 +991,7 @@ def _level_run(wc, run, what, max_restarts, coarse, gm):
           f"{res.res_norm[-1]:.6e}; peak memory {torch.cuda.max_memory_allocated()} B")
     if not res.success or res.num_iter > max_restarts:
         _fail(f"{what}: success={res.success}, {res.num_iter} restarts (> {max_restarts}?)")
-    _only_k1(launches, "shared", what, _k1(wc, ddh))
+    _only_k1(launches, "shared", what, _k1(ddh))
     if again != 0 or not bitwise:
         _fail(f"{what}: the repeated solve launched {again} kernels or differs ({bitwise})")
     if not resid <= 1.2 * gm.tol:
@@ -1557,7 +1563,7 @@ def _l4_run(wc, dev, rng, shapes) -> tuple[dict, dict, dict]:
     if not res.success or res.num_iter > 20 or abs(res.num_iter - 18) > 1:
         _fail(f"L4: success={res.success}, {res.num_iter} restarts; want <= 20 and JAX's "
               "18 +-1")
-    _only_k1(launches, "grouped", "L4", _k1(wc, ddh))
+    _only_k1(launches, "grouped", "L4", _k1(ddh))
     _only_k1(launches, "per_row", "L4 rhs/postprocess", "sparse")
     if again != {**dict.fromkeys(again, 0), "sparse_per_row": 2} or not bitwise:
         _fail(f"L4: the repeated solve launched {again} (want 2 per-row: rhs, postprocess) "
@@ -1571,13 +1577,13 @@ def _l4_run(wc, dev, rng, shapes) -> tuple[dict, dict, dict]:
     Fc, Gc = _masked_normal(rng, gm, dev), _masked_normal(rng, gm, dev)
     what = f"L4 layout (c), {ddh.n_domains} rows, pad {ddh.pad}"
     res_c, plain_c, outs_c = _compare(wc, p, Fc, Gc, ddh.wh_maxit, ddh.gmask == 0, what,
-                                      ("sparse", "sparse_tiled"), reps=1, form=ddh.S_sparse)
-    bound_c, by_c = _cycle_bound(ddh.S_sparse, 1, ddh.n_domains, ddh.pad, ddh.nt, ddh.wh_maxit)
+                                      ("sparse", "sparse_tiled"), reps=1, form=ddh.k1.form)
+    bound_c, by_c = _cycle_bound(ddh.k1.form, 1, ddh.n_domains, ddh.pad, ddh.nt, ddh.wh_maxit)
     print(f"{what}: bound {bound_c:.3f} ms ({by_c}) for the rows it computes")
     row_c = _per_row_row(
-        wc, dev, what, outs_c, res_c, ddh.S_sparse, ddh.pad,
+        wc, dev, what, outs_c, res_c, ddh.k1.form, ddh.pad,
         at=f"L4 rhs/postprocess (c), {ddh.n_domains} rows, pad {ddh.pad}, nt {ddh.nt}",
-        form_ms=1e3 * ddh.sparse_seconds, plain_ms=plain_c, bound=(bound_c, by_c))
+        form_ms=1e3 * ddh.k1_seconds, plain_ms=plain_c, bound=(bound_c, by_c))
     del outs_c
     uidx, _, nu = ddh._domain_groups()
     c = 2 * ddh._fslot_np.shape[1]
@@ -1657,7 +1663,7 @@ def _phases_28_to_32(wc, dev, rng, counts5, ms18, bench20, lomega, total, shapes
         gm=ucfg.gmres, jax_restarts=28)
     print(f"large_unstructured control record: "
           f"{json.dumps(lu.case_record(f'jittered_{nxj}x{nxj}', ctrl, res))}")
-    _only_k1(launches, "grouped", "L3 --control probes", _k1(wc, res.extra["ddh"]))
+    _only_k1(launches, "grouped", "L3 --control probes", _k1(res.extra["ddh"]))
     for k in total:
         total[k] += launches[k]
     del res
@@ -1735,7 +1741,7 @@ def _phases_28_to_32(wc, dev, rng, counts5, ms18, bench20, lomega, total, shapes
         del os.environ["CUDDH_DEBUG"]
     if (res.num_iter, res.num_matvec) != counts5:
         _fail(f"CUDDH_DEBUG=1: {res.num_iter} / {res.num_matvec}; want phase 5's {counts5}")
-    _only_k1(launches, "shared", "CUDDH_DEBUG=1 flagship", _k1(wc, res.extra["ddh"]))
+    _only_k1(launches, "shared", "CUDDH_DEBUG=1 flagship", _k1(res.extra["ddh"]))
     for k in total:
         total[k] += launches[k]
     del res
@@ -1765,7 +1771,7 @@ def _phases_28_to_32(wc, dev, rng, counts5, ms18, bench20, lomega, total, shapes
         _fail(f"shard_sources: {res.extra['n_shard']} shards, {res.num_iter} restarts, "
               f"{res.extra['per_source_matvecs']}, rel {d:.3e}; want phase 18's "
               f"{ms18['restarts']}, {ms18['per']} within 1e-5")
-    _only_k1(launches, "shared", "shard_sources probes", _k1(wc, res.extra["ddh"]))
+    _only_k1(launches, "shared", "shard_sources probes", _k1(res.extra["ddh"]))
     for k in total:
         total[k] += launches[k]
     del res
@@ -1868,7 +1874,7 @@ def main() -> int:
     form_a, form_ms_a = _form_ms(wc, p.S)
     tiles_a, tiles_ms_a = _tiles_ms(wc, p.S)
     nnz_a = _nnz(form_a)
-    k1 = _k1(wc, ddh)
+    k1 = _k1(ddh)
     print(f"flagship sparse form: nnz {nnz_a} (dense {ddh.pad ** 2}), stride {form_a.stride}, "
           f"built in {form_ms_a:.3f} ms; tile form: {tiles_a.pairs} of "
           f"{(ddh.pad // 8) ** 2} 8 x 8 tiles, at most {_depth(tiles_a)} a slot, built in "
@@ -1919,8 +1925,8 @@ def main() -> int:
     print(f"flagship solve: success={res.success} restarts={res.num_iter} "
           f"matvecs={res.num_matvec} launches={launches} solve {res.seconds:.3f} s "
           f"({1e3 * res.seconds / (res.num_matvec + 2):.3f} ms per cycle incl. GMRES) "
-          f"setup {res.extra['setup_seconds']:.2f} s (sparse form "
-          f"{1e3 * res.extra['ddh'].sparse_seconds:.3f} ms); residual history "
+          f"setup {res.extra['setup_seconds']:.2f} s (K1 kernel and its form "
+          f"{1e3 * res.extra['ddh'].k1_seconds:.3f} ms); residual history "
           f"{res.res_norm[0]:.6e} -> {res.res_norm[-1]:.6e} "
           f"(rel {res.res_norm[-1] / res.res_norm[0]:.3e})")
     if not res.success:
@@ -2002,14 +2008,14 @@ def main() -> int:
     what = f"wave cycle (c), {uddh.n_domains} rows, one S each"
     res_c, plain_ms_c, outs_c = _compare(wc, up, Fc, Gc, uddh.wh_maxit, uddh.gmask == 0, what,
                                          ("sparse", "sparse_tiled", "resident"),
-                                         form=uddh.S_sparse)
-    bound_c, by_c = _cycle_bound(uddh.S_sparse, 1, uddh.n_domains, uddh.pad, uddh.nt,
+                                         form=uddh.k1.form)
+    bound_c, by_c = _cycle_bound(uddh.k1.form, 1, uddh.n_domains, uddh.pad, uddh.nt,
                                  uddh.wh_maxit)
     print(f"{what}: bound {bound_c:.3f} ms ({by_c}) for the {uddh.n_domains} rows it computes")
     shapes["sparse_per_row"].append(_per_row_row(
-        wc, dev, what, outs_c, res_c, uddh.S_sparse, uddh.pad,
+        wc, dev, what, outs_c, res_c, uddh.k1.form, uddh.pad,
         at=f"unstructured per-row (c), {uddh.n_domains} rows, pad {uddh.pad}, nt {uddh.nt}",
-        form_ms=1e3 * uddh.sparse_seconds, plain_ms=plain_ms_c, bound=(bound_c, by_c),
+        form_ms=1e3 * uddh.k1_seconds, plain_ms=plain_ms_c, bound=(bound_c, by_c),
         dense=res_c["resident"][1]))
     del uddh, gp, Fb, Gb
 
@@ -2033,7 +2039,7 @@ def main() -> int:
         wc, lambda: run_config(ucfg, device=dev), "unstructured transfer solve",
         max_restarts=100, jax_matvecs=668, matvec_slack=2 * (ucfg.gmres.m + 1),
         gm=ucfg.gmres)
-    _only_k1(launches, "grouped", "unstructured transfer path", _k1(wc, res6.extra["ddh"]))
+    _only_k1(launches, "grouped", "unstructured transfer path", _k1(res6.extra["ddh"]))
     for k in total:
         total[k] += launches[k]
     del res6
@@ -2047,7 +2053,7 @@ def main() -> int:
     if (bddh.pad, bddh.shared_S, bddh.n_domains) != (632, True, 4096):
         _fail(f"ddh_512_block32: pad {bddh.pad}, shared_S {bddh.shared_S}, "
               f"{bddh.n_domains} domains; want 632, True, 4096")
-    _only_k1(launches, "shared", "ddh_512_block32 probes", _k1(wc, bddh))
+    _only_k1(launches, "shared", "ddh_512_block32 probes", _k1(bddh))
     for k in total:
         total[k] += launches[k]
 
@@ -2096,7 +2102,7 @@ def main() -> int:
             320, False, 256, "grouped"):
         _fail(f"L3: pad {lddh.pad}, shared_S {lddh.shared_S}, nu {pre['transfer_nu']}, "
               f"layout {pre['transfer_layout']}; want 320, False, 256, grouped")
-    k1_l3 = _k1(wc, lddh)
+    k1_l3 = _k1(lddh)
     _only_k1(launches, "grouped", "L3 probes", k1_l3)
     launches9 = dict(launches)
     for k in total:
@@ -2156,7 +2162,7 @@ def main() -> int:
                        Basis(hcfg.deg + 1), hcfg.nx, hcfg.nx)
     res12, launches, c12 = _composite_run(
         wc, lambda: run_config(hcfg, device=dev), "helmholtz_ddh_1e6", 12, gfem, dev)
-    _only_k1(launches, "shared", "helmholtz_ddh_1e6 prepare", _k1(wc, res12.extra["ddh"]))
+    _only_k1(launches, "shared", "helmholtz_ddh_1e6 prepare", _k1(res12.extra["ddh"]))
     for k in total:
         total[k] += launches[k]
     # phase 22 holds its patch path to the gather path, in P too
@@ -2168,7 +2174,7 @@ def main() -> int:
         wc, lambda: run_config(HELMHOLTZ_DDH_UNSTRUCTURED_1E6, device=dev),
         "helmholtz_ddh_unstructured_1e6", 8, ufem, dev)
     _only_k1(launches, "grouped", "helmholtz_ddh_unstructured_1e6 prepare",
-             _k1(wc, res13.extra["ddh"]))
+             _k1(res13.extra["ddh"]))
     for k in total:
         total[k] += launches[k]
     n2 = c13["U"].shape[0]
@@ -2263,7 +2269,7 @@ def main() -> int:
           f"solve {res17.seconds:.3f} s; io maps {io_bytes} B")
     if (hddh.n_domains, hddh.shared_S) != (4096, True):
         _fail(f"ddh_high_frequency: {hddh.n_domains} domains, shared_S {hddh.shared_S}")
-    _only_k1(launches, "shared", "ddh_high_frequency probes", _k1(wc, hddh))
+    _only_k1(launches, "shared", "ddh_high_frequency probes", _k1(hddh))
     for k in total:
         total[k] += launches[k]
     uidx, _, nu = hddh._domain_groups()
@@ -2275,19 +2281,20 @@ def main() -> int:
     hm = hmask.cpu().numpy()
     Fh, Gh = _masked_normal(rng, hm, dev), _masked_normal(rng, hm, dev)
     rows_h = nu * c
+    tiles_h, tiles_ms_h = _tiles_ms(wc, hddh.S)
     what = f"layout (a), ddh_high_frequency transfer probe ({nu} x {c} rows, pad {hddh.pad})"
     res_h, plain_ms_h, _ = _compare(wc, ph, Fh, Gh, hddh.wh_maxit, hmask == 0, what,
-                                    ("mma", "sparse"), reps=1, form=hddh.S_sparse,
-                                    tiles=hddh.S_tiles)
-    bound_h, by_h = _cycle_bound(hddh.S_sparse, rows_h, rows_h, hddh.pad, hddh.nt,
+                                    ("mma", "sparse"), reps=1, form=hddh.k1.form,
+                                    tiles=tiles_h)
+    bound_h, by_h = _cycle_bound(hddh.k1.form, rows_h, rows_h, hddh.pad, hddh.nt,
                                  hddh.wh_maxit)
-    _rates(what, _cycle_flop(hddh.S_sparse, rows_h, hddh.nt, hddh.wh_maxit), rows_h, hddh.pad,
+    _rates(what, _cycle_flop(hddh.k1.form, rows_h, hddh.nt, hddh.wh_maxit), rows_h, hddh.pad,
            hddh.nt, hddh.wh_maxit, res_h, bound_h, by_h)
     _add_shape(wc, dev, shapes, "shared",
                f"ddh_high_frequency transfer probe, {rows_h} rows, pad {hddh.pad}, nt {hddh.nt}",
                res_h, plain_ms_h, (bound_h, by_h), hddh.pad, hddh.nt, hddh.wh_maxit,
-               form=hddh.S_sparse, form_ms=1e3 * hddh.sparse_seconds, tiles=hddh.S_tiles,
-               tiles_ms=1e3 * hddh.tiles_seconds, group_rows=rows_h)
+               form=hddh.k1.form, form_ms=1e3 * hddh.k1_seconds, tiles=tiles_h,
+               tiles_ms=tiles_ms_h, group_rows=rows_h)
     del res17, hddh, hp, ph, Fh, Gh, hmask
     torch.cuda.empty_cache()
     print(f"phase 17: {time.perf_counter() - t17:.1f} s")
@@ -2344,7 +2351,7 @@ def main() -> int:
         _fail(f"ddh_multi_source_8: per-source matvecs {per}, want 1 + 41 x restarts")
     if again != 0:
         _fail(f"ddh_multi_source_8: the repeated solve launched {again} kernels")
-    _only_k1(launches, "shared", "ddh_multi_source_8 probes", _k1(wc, mddh))
+    _only_k1(launches, "shared", "ddh_multi_source_8 probes", _k1(mddh))
     for k in total:
         total[k] += launches[k]
     Us = res18.solution
@@ -2383,7 +2390,7 @@ def main() -> int:
           f"direct solves {solo_counts}")
     if not (rb.success and rv.success):
         _fail("direct multi-source: a solve did not converge")
-    k1_v = _k1(wc, vddh)
+    k1_v = _k1(vddh)
     if lb != {**dict.fromkeys(lb, 0), f"{k1_v}_shared": block_mv + 2}:
         _fail(f"direct multi-source block: launches {lb}, want {block_mv + 2} {k1_v} "
               "layout-(a) launches (one per block matvec, rhs and postprocess) and no other")
@@ -2401,18 +2408,19 @@ def main() -> int:
     km = kmask.cpu().numpy()
     Fk, Gk = _masked_normal(rng, km, dev), _masked_normal(rng, km, dev)
     rows_k = K19 * vddh.n_domains
+    tiles_k, tiles_ms_k = _tiles_ms(wc, vddh.S)
     what = f"layout (a), direct multi-source block matvec ({K19} x {vddh.n_domains} rows)"
     res_k, plain_ms_k, _ = _compare(wc, pk, Fk, Gk, vddh.wh_maxit, kmask == 0, what,
-                                    ("mma", "sparse"), form=vddh.S_sparse, tiles=vddh.S_tiles)
-    bound_k, by_k = _cycle_bound(vddh.S_sparse, rows_k, rows_k, vddh.pad, vddh.nt,
+                                    ("mma", "sparse"), form=vddh.k1.form, tiles=tiles_k)
+    bound_k, by_k = _cycle_bound(vddh.k1.form, rows_k, rows_k, vddh.pad, vddh.nt,
                                  vddh.wh_maxit)
-    _rates(what, _cycle_flop(vddh.S_sparse, rows_k, vddh.nt, vddh.wh_maxit), rows_k, vddh.pad,
+    _rates(what, _cycle_flop(vddh.k1.form, rows_k, vddh.nt, vddh.wh_maxit), rows_k, vddh.pad,
            vddh.nt, vddh.wh_maxit, res_k, bound_k, by_k)
     _add_shape(wc, dev, shapes, "shared",
                f"direct multi-source matvec, {K19} x {vddh.n_domains} rows, pad {vddh.pad}, "
                f"nt {vddh.nt}", res_k, plain_ms_k, (bound_k, by_k), vddh.pad, vddh.nt,
-               vddh.wh_maxit, form=vddh.S_sparse, form_ms=1e3 * vddh.sparse_seconds,
-               tiles=vddh.S_tiles, tiles_ms=1e3 * vddh.tiles_seconds, group_rows=rows_k)
+               vddh.wh_maxit, form=vddh.k1.form, form_ms=1e3 * vddh.k1_seconds,
+               tiles=tiles_k, tiles_ms=tiles_ms_k, group_rows=rows_k)
     del rb, rv, vddh, vbs, solo, pk, Fk, Gk
     torch.cuda.empty_cache()
     print(f"phase 19: {time.perf_counter() - t19:.1f} s")
@@ -2458,7 +2466,7 @@ def main() -> int:
         cold, launches = _cache_pair(wc, lambda: run_config(bcfg, device=dev),
                                      "setup cache, ddh_512_block32", cache_dir)
         _only_k1(launches, "shared", "setup cache, ddh_512_block32 cold run",
-                 _k1(wc, cold.extra["ddh"]))
+                 _k1(cold.extra["ddh"]))
         for k in total:
             total[k] += launches[k]
         del cold
@@ -2560,19 +2568,20 @@ def main() -> int:
     mm = m23.cpu().numpy()
     F23, G23 = _masked_normal(rng, mm, dev), _masked_normal(rng, mm, dev)
     rows_23 = nu * c
+    tiles_23, tiles_ms_23 = _tiles_ms(wc, cddh.S)
     what = f"layout (a), nx 512 / block 16 transfer probe ({nu} x {c} rows, pad {cddh.pad})"
     res_23, plain_ms_23, _ = _compare(wc, p23, F23, G23, cddh.wh_maxit, m23 == 0, what,
-                                      ("mma", "sparse"), reps=1, form=cddh.S_sparse,
-                                      tiles=cddh.S_tiles)
-    bound_23, by_23 = _cycle_bound(cddh.S_sparse, rows_23, rows_23, cddh.pad, cddh.nt,
+                                      ("mma", "sparse"), reps=1, form=cddh.k1.form,
+                                      tiles=tiles_23)
+    bound_23, by_23 = _cycle_bound(cddh.k1.form, rows_23, rows_23, cddh.pad, cddh.nt,
                                    cddh.wh_maxit)
-    _rates(what, _cycle_flop(cddh.S_sparse, rows_23, cddh.nt, cddh.wh_maxit), rows_23,
+    _rates(what, _cycle_flop(cddh.k1.form, rows_23, cddh.nt, cddh.wh_maxit), rows_23,
            cddh.pad, cddh.nt, cddh.wh_maxit, res_23, bound_23, by_23)
     _add_shape(wc, dev, shapes, "shared",
                f"nx 512 / block 16 transfer probe, {rows_23} rows, pad {cddh.pad}, "
                f"nt {cddh.nt}", res_23, plain_ms_23, (bound_23, by_23), cddh.pad, cddh.nt,
-               cddh.wh_maxit, form=cddh.S_sparse, form_ms=1e3 * cddh.sparse_seconds,
-               tiles=cddh.S_tiles, tiles_ms=1e3 * cddh.tiles_seconds, group_rows=rows_23)
+               cddh.wh_maxit, form=cddh.k1.form, form_ms=1e3 * cddh.k1_seconds,
+               tiles=tiles_23, tiles_ms=tiles_ms_23, group_rows=rows_23)
     del res23, cddh, cp, p23, F23, G23, m23
     torch.cuda.empty_cache()
     print(f"phase 23: {time.perf_counter() - t23:.1f} s")

@@ -189,13 +189,10 @@ def main() -> int:
     for name, params, gmask, groups in _operators(dev):
         for rows in LADDER[name]:
             p, F, G, sgs = _case(params, gmask, groups, rows, rng)
-            tiles, form = wc.tile_form(p.S), wc.sparse_form(p.S)
-            runs = {
-                "mma": lambda: wc.wave_cycle(p, F, G, WH_MAXIT, sgs or None, variant="mma",
-                                             tiles=tiles),
-                "sparse": lambda: wc.wave_cycle(p, F, G, WH_MAXIT, sgs or None,
-                                                variant="sparse", sparse=form),
-            }
+            kernels = {v: wc.k1_kernel(p.S, variant=v) for v in ("mma", "sparse")}
+            tiles = kernels["mma"].form
+            runs = {v: (lambda k=k: wc.wave_cycle(p, F, G, WH_MAXIT, sgs or None, kernel=k))
+                    for v, k in kernels.items()}
             ablate = (name, rows) in ABLATE
             if ablate:
                 runs.update({k: (lambda lib=lib: _launch(lib, p, F, G, sgs, tiles))
@@ -209,9 +206,9 @@ def main() -> int:
                 "pairs": tiles.pairs, "ms": ms, "mma_over_sparse": ms["mma"] / ms["sparse"],
                 "rel_to_sparse": {k: _rel(o, outs["sparse"]) for k, o in outs.items()
                                   if k != "no_mma"},
-                "default": wc.default_variant(p.S),
-                "occupancy": {k: wc.kernel_occupancy(k, p.S.shape[-1], t, dev)
-                              for k, t in (("mma", tiles), ("sparse", form))},
+                "default": wc.k1_kernel(p.S).variant,
+                "occupancy": {v: wc.kernel_occupancy(v, p.S.shape[-1], k.form, dev)
+                              for v, k in kernels.items()},
             }
             print(json.dumps(rec), flush=True)
             del outs, p, F, G

@@ -12,21 +12,23 @@ Pallas kernel's three stiffness layouts:
       onto (b) (its ``solvers/ddh.py::_wave_cycle``: free on the TPU's 8-row
       tile, 8x the work here).  ``cycle_route`` decides.
 
-Four kernels serve the layouts, chosen by shape and S's tiles and
-non-zeros (``kernel_variant``): ``csrc/wave_cycle_mma.cu`` applies S on the
-tensor cores (``mma.sync`` m16n8k8, a 3-pass TF32 split, the counterpart of
-the Pallas kernel's 3-pass bf16 split on the MXU) from its non-zero 8 x 8
-tiles (``tile_form``), in layouts (a) and (b), the default where that form
-fits and the card measured it faster (``mma_preferred``);
-``csrc/wave_cycle_sparse.cu`` applies S from its exact non-zeros
-(``sparse_form``, a CSC of S) held in shared memory with FP32 FFMA, the
-default elsewhere and for layout (c); ``csrc/wave_cycle.cu`` keeps the
-dense S resident in shared memory
-(pad <= 224 on an H100) and ``csrc/wave_cycle_streamed.cu`` streams it
-through shared memory in panels (pad up to 1024), the dense kernels a
-caller can force.  For tensors on the CPU ``wave_cycle`` runs
-``wave_cycle_plain``, the JAX package's ``_wave_cycle_xla`` loop as torch
-ops; for a CUDA tensor it launches a kernel or raises.
+Four kernels serve the layouts.  ``k1_kernel`` is the one place that chooses
+among them: it applies the rule of ``kernel_variant`` once, on S's shape,
+tiles and non-zeros and the card's shared memory, and builds only the form
+of S the chosen kernel reads (a ``K1``).  ``csrc/wave_cycle_mma.cu``
+applies S on the tensor cores (``mma.sync`` m16n8k8, a 3-pass TF32 split,
+the counterpart of the Pallas kernel's 3-pass bf16 split on the MXU) from
+its non-zero 8 x 8 tiles (``tile_form``), in layouts (a) and (b), the
+default where that form fits and the card measured it faster
+(``mma_preferred``); ``csrc/wave_cycle_sparse.cu`` applies S from its
+exact non-zeros (``sparse_form``, a CSC of S) held in shared memory with
+FP32 FFMA, the default elsewhere and for layout (c); ``csrc/wave_cycle.cu``
+keeps the dense S resident in shared memory (pad <= 224 on an H100) and
+``csrc/wave_cycle_streamed.cu`` streams it through shared memory in panels
+(pad up to 1024), the rule's last resorts, which a caller can also force.
+For tensors on the CPU ``wave_cycle`` runs ``wave_cycle_plain``, the JAX
+package's ``_wave_cycle_xla`` loop as torch ops; for a CUDA tensor it
+launches a kernel or raises.
 
 All compute the stiffness product as ``P @ S`` (the Pallas kernel's
 orientation); the JAX scan computes ``S P``.  They agree because the
@@ -715,81 +717,110 @@ def _check_operands(params, F: torch.Tensor, G: torch.Tensor) -> None:
         raise ValueError(f"wave_cycle: pad={pad} must be a multiple of 8")
 
 
-def _check_form(form: SparseS, ngroups: int, pad: int, device: torch.device) -> None:
-    stride = form.stride
-    expect = {
-        "ptr": (form.ptr, torch.int32, (ngroups, pad + 1)),
-        "idx": (form.idx, torch.int16, (ngroups, stride)),
-        "val": (form.val, torch.float32, (ngroups, stride)),
-        "order": (form.order, torch.int16, (ngroups, pad)),
-    }
+def _check_form(form: SparseS | TileS, ngroups: int, pad: int, device: torch.device) -> None:
+    """The arrays of a sparse or tile form as its kernel reads them."""
+    if isinstance(form, TileS):
+        kind, (slots, warps), pairs = "tile", mma_layout(pad), form.pairs
+        expect = {
+            "val": (form.val, torch.float32, (ngroups, pairs, TILE * TILE)),
+            "kt": (form.kt, torch.int16, (ngroups, pairs)),
+            "it": (form.it, torch.int16, (ngroups, pairs)),
+            "ptr": (form.ptr, torch.int32, (ngroups, warps * slots + 1)),
+            "col": (form.col, torch.int16, (ngroups, warps * slots)),
+        }
+    else:
+        kind, stride = "sparse", form.stride
+        expect = {
+            "ptr": (form.ptr, torch.int32, (ngroups, pad + 1)),
+            "idx": (form.idx, torch.int16, (ngroups, stride)),
+            "val": (form.val, torch.float32, (ngroups, stride)),
+            "order": (form.order, torch.int16, (ngroups, pad)),
+        }
     for name, (t, dtype, shape) in expect.items():
         if t.device != device or t.dtype != dtype or not t.is_contiguous():
             raise ValueError(
-                f"wave_cycle: sparse {name} must be a contiguous {dtype} tensor on {device}, "
+                f"wave_cycle: {kind} {name} must be a contiguous {dtype} tensor on {device}, "
                 f"got {t.dtype} on {t.device} (contiguous={t.is_contiguous()})"
             )
         if tuple(t.shape) != shape:
             raise ValueError(
-                f"wave_cycle: sparse {name} has shape {tuple(t.shape)}, expected {shape}"
+                f"wave_cycle: {kind} {name} has shape {tuple(t.shape)}, expected {shape}"
             )
 
 
-def _check_tiles(form: TileS, ngroups: int, pad: int, device: torch.device) -> None:
-    slots, warps = mma_layout(pad)
-    pairs = form.pairs
-    expect = {
-        "val": (form.val, torch.float32, (ngroups, pairs, TILE * TILE)),
-        "kt": (form.kt, torch.int16, (ngroups, pairs)),
-        "it": (form.it, torch.int16, (ngroups, pairs)),
-        "ptr": (form.ptr, torch.int32, (ngroups, warps * slots + 1)),
-        "col": (form.col, torch.int16, (ngroups, warps * slots)),
-    }
-    for name, (t, dtype, shape) in expect.items():
-        if t.device != device or t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(
-                f"wave_cycle: tile {name} must be a contiguous {dtype} tensor on {device}, "
-                f"got {t.dtype} on {t.device} (contiguous={t.is_contiguous()})"
-            )
-        if tuple(t.shape) != shape:
-            raise ValueError(
-                f"wave_cycle: tile {name} has shape {tuple(t.shape)}, expected {shape}"
-            )
+class K1(NamedTuple):
+    """A K1 kernel and the form of S it reads: ``variant`` (one of
+    ``VARIANTS``) and ``form``, the ``TileS`` of the tensor-core kernel,
+    the ``SparseS`` of the sparse one, or None for a dense kernel, which
+    reads S itself.  ``k1_kernel`` builds it; ``wave_cycle(kernel=)`` runs
+    it as it is."""
+
+    variant: str
+    form: TileS | SparseS | None
+
+    def take(self, index: torch.Tensor) -> "K1":
+        """This kernel on the groups ``index`` of its S (as ``S[index]``)."""
+        return self if self.form is None else K1(self.variant, self.form.take(index))
+
+    def repeat(self, reps: int) -> "K1":
+        """This per-row kernel on a layout-(c) cycle of ``reps`` sources:
+        its groups repeated ``reps`` times, source-major, as
+        ``solvers/ddh.py::_rows`` repeats S."""
+        if reps == 1 or self.form is None:
+            return self
+        groups = self.form.ptr.shape[0]
+        return self.take(torch.arange(groups, device=self.form.ptr.device).repeat(reps))
+
+
+def k1_kernel(S: torch.Tensor, index: torch.Tensor | None = None, per_row: bool = False, *,
+              variant: str | None = None) -> K1:
+    """The kernel that runs cycles on ``S`` ((pad, pad), or (ngroups, pad,
+    pad) of which the cycles read the groups ``index``, None: all) on S's
+    card, with the form of those groups it reads, built here and only for
+    that kernel.  ``per_row``: a layout-(c) stack.
+
+    The rule of ``kernel_variant``, applied once on S's pad, tiles
+    (``tile_pairs``) and non-zeros and the card's shared memory per block:
+    the tensor-core kernel where ``mma_preferred`` holds and its form fits,
+    else the sparse kernel where its form fits, else the resident one, else
+    the streamed one.  ``variant`` forces a kernel instead, to hold the
+    kernels against each other; it raises where that kernel does not take
+    S."""
+    if index is not None:
+        S = S[index]
+    pad = S.shape[-1]
+    limit = _shared_memory_limit(S.device.index)
+    if not per_row and pad % TILE == 0 and (
+            variant == "mma" or variant is None and pad <= MMA_PREFERRED_MAX_PAD):
+        if kernel_variant(pad, limit, None, variant, per_row, tile_pairs(S)) == "mma":
+            return K1("mma", tile_form(S))
+    form = sparse_form(S) if variant in (None, "sparse") and pad <= SPARSE_MAX_PAD else None
+    chosen = kernel_variant(pad, limit, None if form is None else form.stride, variant, per_row)
+    return K1(chosen, form if chosen == "sparse" else None)
 
 
 def wave_cycle(
     params, F: torch.Tensor, G: torch.Tensor, wh_maxit: int = WH_MAXIT,
-    s_group_size: int | None = None, *, variant: str | None = None,
-    sparse: SparseS | None = None, tiles: TileS | None = None,
+    s_group_size: int | None = None, *, kernel: K1 | None = None,
 ):
     """Run the WaveHoltz cycle; returns (u, v) shaped like ``F``.
 
-    On the CPU this is ``wave_cycle_plain`` with the dense S.  On a CUDA
-    device it is one launch of the kernel ``kernel_variant`` names for the
-    pad and the tiles or non-zeros of S: the tensor-core kernel in layouts
-    (a) and (b) where the card measured it faster (``mma_preferred``: pad
-    <= 192 and dense tiles, decided from ``tiles.pairs`` or, with neither
-    form given, from ``tile_pairs(S)``), else the sparse kernel wherever
-    S's ``sparse_form`` fits (the per-row layout (c) always), else a dense
-    one.  ``tiles`` and ``sparse`` are S's ``tile_form`` and
-    ``sparse_form``, prebuilt by the caller (built here, only for the
-    kernel that runs, when None); a caller that hands ``sparse`` alone has
-    applied the rule (``default_variant``, as ``DDH`` does) and gets the
-    sparse kernel.
-    ``variant`` (``"mma"``, ``"sparse"``, ``"resident"``, ``"streamed"``)
-    forces a kernel, to hold them against each other.  A 3-D ``S`` with
-    ``s_group_size`` is layout (b): the runs must be a multiple of
-    ``ROWS_PER_BLOCK`` rows.  A 3-D ``S`` without it holds one matrix per
-    row (layout (c)): the sparse kernel runs it in its per-row instance,
-    each row once; a dense kernel takes each row ``ROWS_PER_BLOCK`` times
-    in layout (b) and the result is read back once (``cycle_route``).
-    Launches are counted in ``k1.launches.<key>`` under the route's key
-    (``ROUTE_KEYS``): ``"shared"`` (a), ``"grouped"`` (b, and (c) on a
-    dense kernel) with an ``"mma_"``, ``"sparse_"`` or ``"streamed_"``
-    prefix for those kernels, and ``"sparse_per_row"`` (c); ``k1.rows`` and
-    ``k1.flop`` count the rows the kernel or the plain cycle runs
-    (``_count_work``; a dense kernel's (c) counts its tiled rows).
-    Anything else raises; nothing falls back.
+    On the CPU this is ``wave_cycle_plain`` with the dense S; ``kernel`` is
+    not read.  On a CUDA device it is one launch of ``kernel``, a ``K1``
+    from ``k1_kernel`` for S (the caller's, built once and reused), or by
+    default ``k1_kernel(params.S)`` here; nothing here decides again.  A
+    3-D ``S`` with ``s_group_size`` is layout (b): the runs must be a
+    multiple of ``ROWS_PER_BLOCK`` rows.  A 3-D ``S`` without it holds one
+    matrix per row (layout (c)): the sparse kernel runs it in its per-row
+    instance, each row once; a dense kernel takes each row
+    ``ROWS_PER_BLOCK`` times in layout (b) and the result is read back once
+    (``cycle_route``).  Launches are counted in ``k1.launches.<key>`` under
+    the route's key (``ROUTE_KEYS``): ``"shared"`` (a), ``"grouped"`` (b,
+    and (c) on a dense kernel) with an ``"mma_"``, ``"sparse_"`` or
+    ``"streamed_"`` prefix for those kernels, and ``"sparse_per_row"`` (c);
+    ``k1.rows`` and ``k1.flop`` count the rows the kernel or the plain
+    cycle runs (``_count_work``; a dense kernel's (c) counts its tiled
+    rows).  Anything else raises; nothing falls back.
     """
     if F.device.type == "cpu":
         _count_work(params, F.shape[0], wh_maxit)
@@ -798,25 +829,13 @@ def wave_cycle(
         raise ValueError(f"wave_cycle: unsupported device {F.device}")
     S = params.S
     ngroups = None if S.dim() == 2 else S.shape[0]
-    per_row = ngroups is not None and s_group_size is None
     _check_operands(params, F, G)
     ndom, pad = F.shape
-    dev = F.device.index
-    limit = _shared_memory_limit(dev)
-    prefer = False
-    if (variant is None and not per_row and pad <= MMA_PREFERRED_MAX_PAD
-            and (tiles is not None or sparse is None)):
-        pairs = tile_pairs(S) if tiles is None else tiles.pairs
-        prefer = mma_preferred(pad, pairs) and mma_shared_memory_bytes(pad, pairs) <= limit
-    tform = form = None
-    if (variant == "mma" or prefer) and not per_row and pad <= MMA_MAX_PAD:
-        tform = tile_form(S) if tiles is None else tiles
-        _check_tiles(tform, ngroups or 1, pad, F.device)
-    if variant == "sparse" or (variant is None and not prefer):
-        form = sparse_form(S) if sparse is None else sparse
+    if kernel is None:
+        kernel = k1_kernel(S, per_row=ngroups is not None and s_group_size is None)
+    variant, form = kernel
+    if form is not None:
         _check_form(form, ngroups or 1, pad, F.device)
-    variant = kernel_variant(pad, limit, None if form is None else form.stride, variant,
-                             per_row, None if tform is None else tform.pairs)
     route = cycle_route(variant, ndom, ngroups, s_group_size)
     if route.tile > 1:
         r = route.tile
@@ -825,7 +844,7 @@ def wave_cycle(
             inv_mi=params.inv_mi.repeat_interleave(r, dim=0),
         )
         u, v = wave_cycle(tiled, F.repeat_interleave(r, dim=0), G.repeat_interleave(r, dim=0),
-                          wh_maxit, route.s_group_size, variant=variant)
+                          wh_maxit, route.s_group_size, kernel=kernel)
         return u[::r], v[::r]
     _count_work(params, ndom, wh_maxit)
     lib = _library(variant)
@@ -836,10 +855,10 @@ def wave_cycle(
         params.tables.data_ptr(), u.data_ptr(), v.data_ptr(),
         ndom, pad, params.tables.shape[0], wh_maxit,
     )
-    tail = (params.dt, params.K0, dev, torch.cuda.current_stream(F.device).cuda_stream)
+    tail = (params.dt, params.K0, F.device.index, torch.cuda.current_stream(F.device).cuda_stream)
     if variant == "mma":
-        head = (tform.val.data_ptr(), tform.kt.data_ptr(), tform.ptr.data_ptr(),
-                tform.col.data_ptr(), tform.pairs)
+        head = (form.val.data_ptr(), form.kt.data_ptr(), form.ptr.data_ptr(),
+                form.col.data_ptr(), form.pairs)
     elif variant == "sparse":
         head = (form.ptr.data_ptr(), form.idx.data_ptr(), form.val.data_ptr(),
                 form.order.data_ptr(), form.stride)
@@ -883,19 +902,6 @@ def _shared_memory_limit(dev: int) -> int:
     if limit < 0:
         raise RuntimeError(f"wave_cycle: cannot read the shared-memory limit of cuda:{dev}")
     return limit
-
-
-def default_variant(S: torch.Tensor, index: torch.Tensor | None = None) -> str:
-    """The K1 kernel ``wave_cycle`` runs by default on the card for a
-    layout-(a) or (b) cycle on ``S`` ((pad, pad), or (ngroups, pad, pad) of
-    which the cycle reads the groups ``index``, None: all), where its
-    sparse form fits (every configuration of the repo): ``"mma"`` where
-    ``mma_preferred`` holds for ``tile_pairs``, else ``"sparse"``.  Callers
-    hand the wrapper only that kernel's form."""
-    pad = S.shape[-1]
-    if pad > MMA_PREFERRED_MAX_PAD or pad % TILE:
-        return "sparse"
-    return "mma" if mma_preferred(pad, tile_pairs(S, index)) else "sparse"
 
 
 def launch_counts() -> dict:

@@ -41,7 +41,7 @@ import torch
 import torch.distributed as dist
 
 from ..models.helmholtz import HelmholtzOp
-from ..ops.cuda.wave_cycle import sparse_form, wave_cycle
+from ..ops.cuda.wave_cycle import k1_kernel, wave_cycle
 from ..ops.face_mass import apply_face_mass
 from ..ops.mass import (
     MassOp,
@@ -257,9 +257,7 @@ class ShardedDDH:
         self.size = ddh.size
         self.wh_maxit = ddh.wh_maxit
         self.pf = p.Hf.shape[1]
-        self._form = None
-        # a shared S: the operator's own forms
-        self._shared = ddh if p.S.dim() == 2 and p.S.is_cuda else None
+        self._k1 = None  # the kernel of a per-row S's cycles, built on first use
 
         self.use_transfer = ddh.use_transfer
         self.T = slab(ddh.T) if ddh.use_transfer else None
@@ -293,17 +291,18 @@ class ShardedDDH:
     # ----------------------------------------------------------- helpers
 
     def _cycle(self, params: DDHParams, F, G, wh_maxit: int):
-        """The wave cycle on the rank's rows; on the card with the
-        operator's form of a shared S for the kernel the dispatch picks
-        (``DDH.shared_forms``), or the sparse form of the rank's per-row S
-        (built once)."""
+        """The wave cycle on the rank's rows; on the card on the operator's
+        kernel for a shared S (``DDH.k1``), or on the per-row kernel of the
+        rank's slab of a per-domain S (built once), repeated for K
+        sources."""
         if not F.is_cuda:
             return wave_cycle(params, F, G, wh_maxit)
-        if self._shared is not None:
-            return wave_cycle(params, F, G, wh_maxit, **self._shared.shared_forms())
-        if self._form is None:
-            self._form = sparse_form(params.S)
-        return wave_cycle(params, F, G, wh_maxit, sparse=self._form)
+        if params.S.dim() == 2:
+            return wave_cycle(params, F, G, wh_maxit, kernel=self.inner.k1)
+        if self._k1 is None:
+            self._k1 = k1_kernel(self.params.S, per_row=True)
+        kernel = self._k1.repeat(F.shape[0] // self.rows_per_rank)
+        return wave_cycle(params, F, G, wh_maxit, kernel=kernel)
 
     def _local_lam(self, lam: torch.Tensor) -> torch.Tensor:
         """The rank's rows of the own-slot traces of ``lam`` (K, 2 n_lambda)

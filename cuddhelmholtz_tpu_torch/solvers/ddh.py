@@ -31,13 +31,13 @@ plane-wave coarse correction of ``solvers/coarse.py``.
 
 The port pads a subdomain to a multiple of ``PAD_MULTIPLE`` = 8 DOFs (169 ->
 176 at the flagship, 625 -> 632 with 32-DOF blocks) instead of the JAX
-package's 128.  On the card each wave cycle runs the kernel the wrapper's
-rule picks for S (``default_variant``): the tensor-core kernel where S's
-non-zero 8 x 8 tiles are dense at pad <= 192 (the unstructured square),
-with those tiles (``S_tiles``), else the sparse kernel with S's exact
-non-zeros (``S_sparse``: the flagship, pad 320 and 632, and the per-row
-layout (c)).  The operator decides once, builds only that kernel's form,
-on the first cycle that needs it, and hands it to every later one.
+package's 128.  On the card each wave cycle runs a ``K1`` kernel that
+``ops/cuda/wave_cycle.py::k1_kernel`` chose for S, with the form of S it
+reads.  The operator holds two, each built on first use and handed to
+every later cycle: ``k1`` for its own cycles (the rule's kernel for a
+shared S, the per-row one for a per-domain S) and ``k1_probe`` for its
+probes (``k1`` for a shared S; for a per-domain S the rule's kernel for
+the unique subdomains' matrices).
 
 On the card the transfer apply is host-bound: about 40 small launches
 whose device work is a tenth of their host time.  ``action`` therefore
@@ -71,21 +71,13 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.cuda.wave_cycle import (
-    ROWS_PER_BLOCK,
-    WH_MAXIT,
-    SparseS,
-    TileS,
-    default_variant,
-    sparse_form,
-    tile_form,
-    wave_cycle,
-)
+from ..ops.cuda.wave_cycle import K1, ROWS_PER_BLOCK, WH_MAXIT, k1_kernel, wave_cycle
 from ..ops.mass import assembly_table, lumped_mass_diagonal
 from ..spaces.ensemble import EnsembleSpace, structured_labels
 from ..spaces.h1 import H1Space
 from ..utils.debug import check_finite, check_index_table
 from ..utils.device import check_device  # noqa: F401 (re-exported to the drivers)
+from ..utils.graphs import capture
 from ..utils.spans import count, span, spanned
 from .gmres import (
     BlockGmresResult,
@@ -148,8 +140,6 @@ _INDEX_FIELDS = ("gI", "fslot", "B0", "B1")
 # one empties the operator's cache of graphs
 _GRAPH_READS = frozenset((*_TENSOR_FIELDS, "sol_table", "K0", "dt32", "omega32",
                           "use_transfer", "route", "_T_u", "_T_groups", "_T_dev"))
-# eager applies on a side stream before a capture, as PyTorch documents
-GRAPH_WARMUP = 3
 
 
 def _pad_to(n: int, mult: int) -> int:
@@ -561,11 +551,9 @@ class DDH(nn.Module):
         }
         for name, t in _to_device(host, device, dtype).items():
             self.register_buffer(name, t)
-        self._S_sparse: SparseS | None = None
-        self.sparse_seconds: float | None = None  # build time of S_sparse
-        self._S_tiles: TileS | None = None
-        self.tiles_seconds: float | None = None  # build time of S_tiles
-        self._k1: str | None = None  # the K1 kernel of a shared S (shared_forms)
+        self._k1: K1 | None = None
+        self._k1_probe: K1 | None = None
+        self.k1_seconds: float | None = None  # build time of k1
         # K0, dt and omega rounded to the compute dtype, as the JAX package's
         # dtype scalars
         self._np_dtype = torch.empty((), dtype=dtype).numpy().dtype
@@ -583,28 +571,29 @@ class DDH(nn.Module):
         )
 
     @property
-    def S_sparse(self) -> SparseS:
-        """The exact non-zeros of S (``sparse_form``), the form the sparse
-        kernel reads: built on first use and kept for every later cycle on
-        this operator."""
-        if self._S_sparse is None:
+    def k1(self) -> K1:
+        """The K1 kernel of this operator's cycles and the form of S it
+        reads (``k1_kernel``): the rule's kernel for a shared S, the
+        per-row one for a per-domain S.  Built on first use (timed in
+        ``k1_seconds``) and kept for every later cycle."""
+        if self._k1 is None:
             t0 = time.perf_counter()
-            self._S_sparse = sparse_form(self.S)
+            self._k1 = k1_kernel(self.S, per_row=self.S.dim() == 3)
             _sync(self.S.device)
-            self.sparse_seconds = time.perf_counter() - t0
-        return self._S_sparse
+            self.k1_seconds = time.perf_counter() - t0
+        return self._k1
 
     @property
-    def S_tiles(self) -> TileS:
-        """The non-zero 8 x 8 tiles of S (``tile_form``), the form the
-        tensor-core kernel reads: built on first use and kept for every
-        later cycle on this operator."""
-        if self._S_tiles is None:
-            t0 = time.perf_counter()
-            self._S_tiles = tile_form(self.S)
-            _sync(self.S.device)
-            self.tiles_seconds = time.perf_counter() - t0
-        return self._S_tiles
+    def k1_probe(self) -> K1:
+        """The K1 kernel of this operator's probes: ``k1`` for a shared S;
+        for a per-domain S the rule's kernel for the unique subdomains'
+        matrices (``_domain_groups``), built on first use."""
+        if self.S.dim() == 2:
+            return self.k1
+        if self._k1_probe is None:
+            uidx, _, _ = self._domain_groups()
+            self._k1_probe = k1_kernel(self.S, torch.as_tensor(uidx, device=self.S.device))
+        return self._k1_probe
 
     @property
     def size(self) -> int:
@@ -721,36 +710,16 @@ class DDH(nn.Module):
         )
 
     def _cycle(self, params: DDHParams, F, G, wh_maxit: int):
-        """The wave cycle on this operator's S; on the card with the form of
-        the kernel the dispatch picks for a shared S (``_forms``), or the
-        sparse form of a per-domain S, one per row (the sparse kernel's
-        per-row instance).  The CPU runs the plain cycle, which reads
-        neither."""
+        """The wave cycle on this operator's S; on the card on its kernel
+        ``k1``, whose per-row form a cycle of K sources of a per-domain S
+        repeats K times (``K1.repeat``).  The CPU runs the plain cycle,
+        which reads no kernel."""
         if not F.is_cuda:
             return wave_cycle(params, F, G, wh_maxit)
-        if params.S.dim() == 2:
-            return wave_cycle(params, F, G, wh_maxit, **self.shared_forms())
-        return wave_cycle(params, F, G, wh_maxit, sparse=self._cycle_form(params, F.shape[0]))
-
-    def shared_forms(self) -> dict:
-        """The keyword handing a cycle on this operator's shared S the form
-        of the kernel the dispatch picks for it (``default_variant``, decided
-        once): ``tiles=S_tiles`` or ``sparse=S_sparse``, built on first use;
-        the other form is not built."""
-        if self._k1 is None:
-            self._k1 = default_variant(self.S)
-        return {"tiles": self.S_tiles} if self._k1 == "mma" else {"sparse": self.S_sparse}
-
-    def _cycle_form(self, params: DDHParams, rows: int) -> SparseS:
-        """The sparse form of ``params.S`` for a cycle of ``rows`` rows: K
-        sources of ndom rows each; a per-domain S (layout (c), one group
-        per row, no replicas) then runs its form repeated K times,
-        source-major as ``_rows`` repeats S."""
-        form = self.S_sparse
-        reps = rows // self.n_domains
-        if params.S.dim() == 3 and reps > 1:
-            form = form.take(torch.arange(self.n_domains, device=form.ptr.device).repeat(reps))
-        return form
+        kernel = self.k1
+        if params.S.dim() == 3:
+            kernel = kernel.repeat(F.shape[0] // self.n_domains)
+        return wave_cycle(params, F, G, wh_maxit, kernel=kernel)
 
     # ------------------------------------------------------ transfer / io
 
@@ -795,13 +764,7 @@ class DDH(nn.Module):
         Ha_u, mi_u = self.Ha[ui], self.inv_mi[ui]
         grouped = p.S.dim() == 3
         S_u = p.S[ui].contiguous() if grouped else p.S
-        forms = {}
-        if dev.type == "cuda" and grouped:
-            # the form of the kernel the dispatch picks for the unique matrices
-            forms = ({"tiles": self.S_tiles.take(ui)} if default_variant(p.S, ui) == "mma"
-                     else {"sparse": self.S_sparse.take(ui)})
-        elif dev.type == "cuda":
-            forms = self.shared_forms()
+        kernel = self.k1_probe if dev.type == "cuda" else None
 
         chunk = max(1, min(ncols, PROBE_STATE_ELEMS // (nu * pad)))
         if grouped:
@@ -821,7 +784,7 @@ class DDH(nn.Module):
                         inv_mi=mi_u.repeat_interleave(c8, dim=0),
                     )
                     u, v = wave_cycle(pc, fg[0], fg[1], self.wh_maxit, s_group_size=c8,
-                                      **forms)
+                                      kernel=kernel)
                     u = u.reshape(nu, c8, pad)[:, :c].transpose(0, 1)
                     v = v.reshape(nu, c8, pad)[:, :c].transpose(0, 1)
                 else:
@@ -829,7 +792,7 @@ class DDH(nn.Module):
                     fg = fg.reshape(2, c * nu, pad)
                     pc = p._replace(Ha=Ha_u.repeat(c, 1), inv_mi=mi_u.repeat(c, 1))
                     rows += nu * c
-                    u, v = wave_cycle(pc, fg[0], fg[1], self.wh_maxit, **forms)
+                    u, v = wave_cycle(pc, fg[0], fg[1], self.wh_maxit, kernel=kernel)
                     u, v = u.reshape(c, nu, pad), v.reshape(c, nu, pad)
                 us.append(u)
                 vs.append(v / p.omega)
@@ -961,9 +924,8 @@ class DDH(nn.Module):
         """The JAX package's key parts from the port's host staging arrays,
         in float32 (the compute dtype) and int32, plus the cache format
         version and a backend tag: ``torch``, the device type and the cycle
-        that runs the probes (the K1 kernel the dispatch picks for the
-        unique subdomains' S, decided before either form is built, or the
-        plain cycle on the CPU).  Probes of different cycles differ at fp32
+        that runs the probes (the variant of ``k1_probe``, or the plain
+        cycle on the CPU).  Probes of different cycles differ at fp32
         round-off, so an entry of the JAX package or of another device is
         never loaded."""
         h = hashlib.sha256()
@@ -976,11 +938,7 @@ class DDH(nn.Module):
         for arr in (self._fslot_np, self._B0_np, self._B1_np):
             h.update(np.ascontiguousarray(arr, dtype=np.int32).tobytes())
         dev = self.gmask.device
-        cycle = "plain"
-        if dev.type == "cuda":
-            uidx, _, _ = self._domain_groups()
-            cycle = default_variant(self.S, None if self.S.dim() == 2
-                                    else torch.as_tensor(uidx, device=dev))
+        cycle = self.k1_probe.variant if dev.type == "cuda" else "plain"
         h.update(repr((
             CACHE_FORMAT_VERSION, "torch", dev.type, cycle, self.wh_maxit, self.pad,
             self.n_own, self.n_lost, self.nt, float(self.omega), float(self.dt),
@@ -1641,19 +1599,7 @@ class _ApplyGraph:
 
     def __init__(self, apply: Callable, lam: torch.Tensor, pool):
         self.x = lam.clone()
-        self.graph = torch.cuda.CUDAGraph()
-        capture = torch.cuda.graph(self.graph, pool=pool)
-        # warm up on the capture's stream, one for every capture in the
-        # process: cuBLAS keeps a workspace for each stream it has run on,
-        # so a new side stream per capture would hold 32 MiB more each time
-        side = capture.capture_stream
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            for _ in range(GRAPH_WARMUP):
-                apply(self.x)
-        torch.cuda.current_stream().wait_stream(side)
-        with capture:
-            self.y = apply(self.x)
+        self.graph, self.y = capture(apply, (self.x,), pool)
 
     def __call__(self, lam: torch.Tensor) -> torch.Tensor:
         self.x.copy_(lam)

@@ -75,6 +75,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from ..utils.graphs import capture
 from ..utils.linalg import norm
 from ..utils.spans import count, span, spanned
 
@@ -209,21 +210,8 @@ class _StepGraphs:
 
     def _capture(self, k: int):
         count("gmres.step.captures")
-        graph = torch.cuda.CUDAGraph()
-        # warm up and capture on torch's capture stream, one for every
-        # capture in the process (cuBLAS keeps a workspace per stream), and
-        # without torch.cuda.graph's synchronize and empty_cache per capture
-        side = torch.cuda.graph(graph, pool=self.pool).capture_stream
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            # the warm-up writes copies: the step updates its state in place
-            _arnoldi_givens(*(t.clone() for t in self.state()), self.w.clone(), k, self.reorth)
-            graph.capture_begin(self.pool)
-            try:
-                _arnoldi_givens(*self.state(), self.w, k, self.reorth)
-            finally:
-                graph.capture_end()
-        torch.cuda.current_stream().wait_stream(side)
+        graph, _ = capture(_arnoldi_givens, (*self.state(), self.w, k, self.reorth), self.pool,
+                           in_place=True)
         return graph
 
 

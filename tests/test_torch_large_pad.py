@@ -304,7 +304,7 @@ def test_streamed_shared_matches_plain(cuda):
     rng = np.random.default_rng(2)
     F, G = _masked(rng, mask.cpu().numpy(), cuda), _masked(rng, mask.cpu().numpy(), cuda)
     before = wc.launch_counts()
-    u, v = wc.wave_cycle(p, F, G, 2, variant="streamed")
+    u, v = wc.wave_cycle(p, F, G, 2, kernel=wc.k1_kernel(p.S, variant="streamed"))
     torch.cuda.synchronize()
     assert wc.launch_counts() == {**before, "streamed_shared": before["streamed_shared"] + 1}
     _check(u, v, *wc.wave_cycle_plain(p, F, G, 2), mask == 0)
@@ -327,7 +327,7 @@ def test_streamed_grouped_matches_plain(cuda, c):
     rng = np.random.default_rng(3)
     F, G = _masked(rng, mask.cpu().numpy(), cuda), _masked(rng, mask.cpu().numpy(), cuda)
     before = wc.launch_counts()
-    u, v = wc.wave_cycle(p, F, G, 2, c, variant="streamed")
+    u, v = wc.wave_cycle(p, F, G, 2, c, kernel=wc.k1_kernel(p.S, variant="streamed"))
     torch.cuda.synchronize()
     assert wc.launch_counts() == {**before, "streamed_grouped": before["streamed_grouped"] + 1}
     _check(u, v, *wc.wave_cycle_plain(p, F, G, 2, c), mask == 0)
@@ -342,8 +342,8 @@ def test_streamed_matches_resident_at_pad_176(cuda):
     m = ddh.gmask.cpu().numpy()
     F, G = _masked(rng, m, cuda), _masked(rng, m, cuda)
     before = wc.launch_counts()
-    u_r, v_r = wc.wave_cycle(ddh.params, F, G, 1, variant="resident")
-    u_s, v_s = wc.wave_cycle(ddh.params, F, G, 1, variant="streamed")
+    u_r, v_r = wc.wave_cycle(ddh.params, F, G, 1, kernel=wc.k1_kernel(ddh.S, variant="resident"))
+    u_s, v_s = wc.wave_cycle(ddh.params, F, G, 1, kernel=wc.k1_kernel(ddh.S, variant="streamed"))
     torch.cuda.synchronize()
     assert wc.launch_counts() == {
         **before, "shared": before["shared"] + 1,

@@ -36,7 +36,7 @@ import torch
 import cuddhelmholtz_tpu_torch.solvers.ddh as ddh_mod
 from cuddhelmholtz_tpu_torch.ops.cuda import wave_cycle as wc
 
-from test_torch_sparse_cycle import LIMIT, _rel_max, _structured, _unstructured
+from test_torch_sparse_cycle import LIMIT, _h100_limit, _rel_max, _structured, _unstructured
 from test_torch_wave_cycle import _f64, _jax_case, _jax_f64
 
 # Small shapes: torch's intra-op thread pool costs more than it saves here,
@@ -234,15 +234,20 @@ def test_transfer_solve_with_split_probes_keeps_jax_counts(monkeypatch):
     assert res.success and (res.num_iter, res.num_matvec) == (11, 222)
 
 
-def test_ddh_holds_its_tile_form():
-    """The operator builds the tile form of its own S on first use, on its
-    device, and keeps it; cycles on the CPU do not build it."""
-    ddh = _structured("cpu", 16, 16, 20.0)
+def test_ddh_holds_its_tile_form(monkeypatch):
+    """The operator builds the tile form of the matrices its tensor-core
+    kernel reads (the probes of the unstructured square's unique S) on
+    first use, on its device, and keeps it; cycles on the CPU do not build
+    it."""
+    _h100_limit(monkeypatch)
+    ddh = _unstructured("cpu", omega_scale=32.0)  # few steps: the cycle's input is zero
     ddh.action(torch.zeros(ddh.size))
-    assert ddh.tiles_seconds is None
-    form = ddh.S_tiles
-    assert torch.equal(wc.tile_dense(form, ddh.pad)[0], ddh.S)
-    assert ddh.tiles_seconds >= 0 and ddh.S_tiles is form
+    assert ddh._k1_probe is None
+    kernel = ddh.k1_probe
+    uidx, _, _ = ddh._domain_groups()
+    assert kernel.variant == "mma"
+    assert torch.equal(wc.tile_dense(kernel.form, ddh.pad), ddh.S[torch.as_tensor(uidx)])
+    assert ddh.k1_probe is kernel and ddh._k1 is None
 
 
 # (pad, tile pairs, sparse-form stride, default) of every configuration the
@@ -297,39 +302,53 @@ def test_mma_preferred_threshold(pad, pairs, want):
     assert wc.kernel_variant(pad, LIMIT, 8000, pairs=pairs) == want
 
 
+def _form_kind(kernel: wc.K1):
+    return {"mma": wc.TileS, "sparse": wc.SparseS}[kernel.variant]
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_tile_pairs_counts_without_the_form(case):
+def test_tile_pairs_counts_without_the_form(case, monkeypatch):
     """``tile_pairs`` is the form's ``pairs``, of every group or of the
-    groups ``index``, and ``default_variant`` applies the rule to it: the
+    groups ``index``, and ``k1_kernel`` applies the rule to it on an H100
+    and builds only the chosen kernel's form, of those groups: the
     tensor-core kernel for the square's dense tiles, the sparse kernel at
     nx 32's pad 176 (168 tiles, 7.6 an output tile) and at pad 632."""
+    _h100_limit(monkeypatch)
     make, pad, _ = CASES[case]
     S = make()
     assert wc.tile_pairs(S) == wc.tile_form(S).pairs
     want = "mma" if case == "unstructured" else "sparse"
-    assert wc.default_variant(S) == want
+    kernel = wc.k1_kernel(S)
+    assert kernel.variant == want and type(kernel.form) is _form_kind(kernel)
     if S.dim() == 3:
         index = torch.tensor([1, 0])
         assert wc.tile_pairs(S, index) == wc.tile_form(S[index]).pairs
-        assert wc.default_variant(S, index) == ("mma" if wc.mma_preferred(
+        kernel = wc.k1_kernel(S, index)
+        assert kernel.variant == ("mma" if wc.mma_preferred(
             pad, wc.tile_pairs(S, index)) else "sparse")
+        assert type(kernel.form) is _form_kind(kernel) and kernel.form.ptr.shape[0] == 2
 
 
 @pytest.mark.parametrize("unstructured", [False, True])
-def test_ddh_builds_only_the_form_it_runs(unstructured):
-    """``shared_forms`` hands a shared S's cycles the form of the kernel the
-    rule picks and builds only that one; the setup-cache key builds
-    neither form."""
+def test_ddh_builds_only_the_form_it_runs(unstructured, monkeypatch):
+    """A shared S's cycles and probes run one kernel, the rule's, and the
+    operator builds only its form; a per-domain S's probes run the rule's
+    kernel for the unique matrices, whose form is built without the
+    cycles' per-row one.  The setup-cache key on the CPU builds no
+    kernel."""
+    _h100_limit(monkeypatch)
     ddh = _unstructured("cpu") if unstructured else _structured("cpu", 32, 16, 20.0)
     ddh.setup_cache_key()
-    assert ddh._S_sparse is None and ddh._S_tiles is None
+    assert ddh._k1 is None and ddh._k1_probe is None
     if unstructured:  # a per-domain S: its probes decide from the unique matrices
         uidx, _, _ = ddh._domain_groups()
-        assert wc.default_variant(ddh.S, torch.as_tensor(uidx)) == "mma"
+        probe = ddh.k1_probe
+        assert probe.variant == "mma" and probe.form.ptr.shape[0] == len(uidx)
+        assert ddh._k1 is None
         return
-    forms = ddh.shared_forms()
-    assert list(forms) == ["sparse"] and forms["sparse"] is ddh.S_sparse
-    assert ddh._S_tiles is None and ddh.tiles_seconds is None
+    kernel = ddh.k1
+    assert kernel.variant == "sparse" and type(kernel.form) is wc.SparseS
+    assert ddh.k1_probe is kernel
 
 
 def test_k1_study_needs_a_card(monkeypatch, capsys):
@@ -383,10 +402,11 @@ def test_mma_shared_matches_plain_and_sparse(cuda):
     mask = ddh.gmask[:62]
     rng = np.random.default_rng(12)
     F, G = _masked(rng, mask), _masked(rng, mask)
-    u, v = _launch(p, F, G, "mma_shared", mask, tiles=ddh.S_tiles, variant="mma")
+    mma = wc.k1_kernel(p.S, variant="mma")
+    u, v = _launch(p, F, G, "mma_shared", mask, kernel=mma)
     _close(u, v, *wc.wave_cycle_plain(p, F, G, 1))
     _close(u, v, *_launch(p, F, G, "sparse_shared", mask))
-    u2, v2 = _launch(p, F, G, "mma_shared", mask, variant="mma")
+    u2, v2 = _launch(p, F, G, "mma_shared", mask, kernel=wc.k1_kernel(p.S, variant="mma"))
     assert torch.equal(u, u2) and torch.equal(v, v2)
 
 
@@ -403,7 +423,8 @@ def test_mma_grouped_matches_plain_and_sparse(cuda):
     F, G = _masked(rng, mask), _masked(rng, mask)
     u, v = _launch(gp, F, G, "mma_grouped", mask, s_group_size=c)
     _close(u, v, *wc.wave_cycle_plain(gp, F, G, 1, c))
-    _close(u, v, *_launch(gp, F, G, "sparse_grouped", mask, s_group_size=c, variant="sparse"))
+    _close(u, v, *_launch(gp, F, G, "sparse_grouped", mask, s_group_size=c,
+                          kernel=wc.k1_kernel(gp.S, variant="sparse")))
 
 
 @pytest.mark.cuda
@@ -414,8 +435,8 @@ def test_mma_refuses_per_row_and_large_pad(cuda):
     p = ddh.params
     z = torch.zeros_like(ddh.Ha[:8])
     with pytest.raises(ValueError, match="no kernel mma"):
-        wc.wave_cycle(p._replace(Ha=z, inv_mi=z), z, z, 1, variant="mma")
+        wc.k1_kernel(p.S, variant="mma")
     pp = p._replace(S=p.S.expand(8, -1, -1).contiguous(), Ha=z, inv_mi=z)
     with pytest.raises(ValueError, match="no kernel mma"):
-        wc.wave_cycle(pp, z, z, 1, variant="mma")
+        wc.k1_kernel(pp.S, per_row=True, variant="mma")
     _launch(pp, z, z, "sparse_per_row", torch.ones_like(z))

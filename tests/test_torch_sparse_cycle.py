@@ -5,7 +5,8 @@ the sparse kernel (``csrc/wave_cycle_sparse.cu``) reads that form from shared
 memory and is the default on the card.  On the CPU these tests hold the form
 (densified, it gives S back bitwise; padded columns are empty; the pinned
 non-zero counts), the plain cycle through it (float64, to 1e-12 of the dense
-plain cycle, whose sums it only reorders), the dispatch rule and the route
+plain cycle, whose sums it only reorders), the dispatch rule, the DDH's
+kernel (``k1_kernel`` with the card's limit set to an H100's) and the route
 of each layout (``cycle_route``: a per-row stack runs each row once).  The JAX
 comparisons of the plain sparse cycle are in ``test_torch_wave_cycle.py``
 (layouts (a), (c)) and ``test_torch_large_pad.py`` (pad 632).
@@ -19,7 +20,8 @@ blocks: 8,881 at nx = 64, 9,841 at ``ddh_512_block32``'s nx = 512).
 The tests marked ``cuda`` hold the sparse kernel to the plain cycle in
 layouts (a), (b) and (c) (its per-row instance) at pad 176 and 632, and to each dense kernel forced
 on the same rows (tolerance 2e-4 relative to the max, as
-``test_torch_wave_cycle.py``); they skip where there is no GPU.  On a
+``test_torch_wave_cycle.py``), and a world-1 ``ShardedDDH`` to its DDH's
+own kernel object; they skip where there is no GPU.  On a
 machine without JAX run
 ``python -m pytest --noconftest tests/test_torch_sparse_cycle.py -m cuda``.
 """
@@ -43,6 +45,12 @@ torch.set_num_threads(1)
 
 TOL = 2e-4
 LIMIT = 232448  # H100 opt-in shared memory per block
+
+
+def _h100_limit(monkeypatch) -> None:
+    """Let ``k1_kernel`` choose on the CPU as on an H100: its one reader of
+    the card's shared memory per block returns LIMIT."""
+    monkeypatch.setattr(wc, "_shared_memory_limit", lambda dev: LIMIT)
 
 
 def _rel_max(got, want) -> float:
@@ -145,16 +153,19 @@ def test_sparse_plain_ragged_groups_match_dense():
     assert _rel_max(ub, ub0) < 1e-12 and _rel_max(vb, vb0) < 1e-12
 
 
-def test_ddh_holds_its_sparse_form():
-    """The operator builds the form of its own S on first use, on its
-    device, and keeps it; cycles on the CPU do not build it."""
+def test_ddh_holds_its_sparse_form(monkeypatch):
+    """The operator builds its kernel, the sparse one with the form of its
+    own S, on first use, on its device, and keeps it; cycles on the CPU do
+    not build it."""
+    _h100_limit(monkeypatch)
     ddh = _structured("cpu", 16, 16, 20.0)
     ddh.action(torch.zeros(ddh.size))
-    assert ddh.sparse_seconds is None
-    form = ddh.S_sparse
-    assert torch.equal(_dense(form, ddh.pad)[0], ddh.S)
-    assert form.val.dtype == torch.float32 and ddh.sparse_seconds >= 0
-    assert ddh.S_sparse is form
+    assert ddh._k1 is None and ddh.k1_seconds is None
+    kernel = ddh.k1
+    assert kernel.variant == "sparse"
+    assert torch.equal(_dense(kernel.form, ddh.pad)[0], ddh.S)
+    assert kernel.form.val.dtype == torch.float32 and ddh.k1_seconds >= 0
+    assert ddh.k1 is kernel and ddh.k1_probe is kernel
 
 
 # (pad, sparse-form stride) of every configuration the repo runs, from this
@@ -226,19 +237,22 @@ def test_route_of_each_layout(variant):
 
 
 @pytest.mark.parametrize("K", [1, 3])
-def test_per_row_cycle_of_k_sources_runs_each_row_once(K):
+def test_per_row_cycle_of_k_sources_runs_each_row_once(K, monkeypatch):
     """The DDH's cycle on K sources with a per-domain S (rhs, postprocess
-    and the direct matvec of an unstructured mesh): K ndom rows, the form
-    repeated K times source-major, one group per row, no replicas."""
+    and the direct matvec of an unstructured mesh): K ndom rows on the
+    operator's per-row sparse kernel, its form repeated K times
+    source-major, one group per row, no replicas."""
+    _h100_limit(monkeypatch)
     ddh = _unstructured("cpu")
     nd = ddh.n_domains
     p = _rows(ddh.params, K)
-    form = ddh._cycle_form(p, K * nd)
-    assert p.S.shape[0] == form.ptr.shape[0] == K * nd
+    assert ddh.k1.variant == "sparse"
+    kernel = ddh.k1.repeat(K)
+    form = kernel.form
+    assert kernel.variant == "sparse" and p.S.shape[0] == form.ptr.shape[0] == K * nd
     for name in wc.SparseS._fields:
-        assert torch.equal(getattr(form, name), getattr(ddh.S_sparse, name).repeat(K, 1)), name
-    variant = wc.kernel_variant(ddh.pad, LIMIT, form.stride, per_row=True)
-    route = wc.cycle_route(variant, K * nd, p.S.shape[0])
+        assert torch.equal(getattr(form, name), getattr(ddh.k1.form, name).repeat(K, 1)), name
+    route = wc.cycle_route(kernel.variant, K * nd, p.S.shape[0])
     assert route == wc.Route("sparse_per_row", K * nd, K * nd, 1, 1)
 
 
@@ -309,11 +323,11 @@ def test_sparse_shared_matches_plain_and_dense(cuda, pad):
     rng = np.random.default_rng(6)
     F, G = _masked(rng, ddh.gmask), _masked(rng, ddh.gmask)
     p = ddh.params
-    u, v = _run(p, F, G, "sparse_shared", ddh.gmask, sparse=ddh.S_sparse)
+    u, v = _run(p, F, G, "sparse_shared", ddh.gmask, kernel=ddh.k1)
     _close(u, v, *wc.wave_cycle_plain(p, F, G, 1))
     for variant in ("resident", "streamed") if pad == 176 else ("streamed",):
         key = "shared" if variant == "resident" else "streamed_shared"
-        _close(u, v, *_run(p, F, G, key, ddh.gmask, variant=variant))
+        _close(u, v, *_run(p, F, G, key, ddh.gmask, kernel=wc.k1_kernel(p.S, variant=variant)))
 
 
 @pytest.mark.cuda
@@ -332,7 +346,8 @@ def test_sparse_grouped_matches_plain_and_dense(cuda, pad, c):
     F, G = _masked(rng, mask), _masked(rng, mask)
     u, v = _run(gp, F, G, "sparse_grouped", mask, s_group_size=c)
     _close(u, v, *wc.wave_cycle_plain(gp, F, G, 1, c))
-    u_s, v_s = _run(gp, F, G, "streamed_grouped", mask, s_group_size=c, variant="streamed")
+    u_s, v_s = _run(gp, F, G, "streamed_grouped", mask, s_group_size=c,
+                    kernel=wc.k1_kernel(gp.S, variant="streamed"))
     _close(u, v, u_s, v_s)
 
 
@@ -348,3 +363,31 @@ def test_sparse_per_row_matches_plain(cuda, pad):
     F, G = _masked(rng, ddh.gmask), _masked(rng, ddh.gmask)
     u, v = _run(pp, F, G, "sparse_per_row", ddh.gmask)
     _close(u, v, *wc.wave_cycle_plain(pp, F, G, 1))
+
+
+@pytest.mark.cuda
+def test_sharded_ddh_runs_the_operators_kernel(cuda, monkeypatch):
+    """A world-1 ``ShardedDDH`` over a card DDH with a shared S runs its
+    cycles on the DDH's own kernel object (``DDH.k1``), under the same
+    launch key, and builds no kernel of its own."""
+    from cuddhelmholtz_tpu_torch.parallel import sharding
+
+    ddh = _structured(cuda, *STRUCTURED[176])
+    sharded = sharding.ShardedDDH(ddh)
+    kernels, run = [], sharding.wave_cycle
+
+    def spy(*args, kernel=None, **kw):
+        kernels.append(kernel)
+        return run(*args, kernel=kernel, **kw)
+
+    monkeypatch.setattr(sharding, "wave_cycle", spy)
+    rng = np.random.default_rng(9)
+    lam = torch.from_numpy(rng.standard_normal(ddh.size).astype(np.float32)).to(cuda)
+    before = wc.launch_counts()
+    sharded.action(lam)
+    torch.cuda.synchronize()
+    assert len(kernels) == 1 and kernels[0] is ddh.k1 and sharded._k1 is None
+    assert wc.launch_counts() == {**before, "sparse_shared": before["sparse_shared"] + 1}
+    ddh.action(lam)
+    torch.cuda.synchronize()
+    assert wc.launch_counts()["sparse_shared"] == before["sparse_shared"] + 2

@@ -327,7 +327,8 @@ def test_kernel_refuses_bad_groups_and_large_pad(cuda):
     p = gp._replace(S=torch.zeros((1, big, big), device=cuda), Ha=z, inv_mi=z)
     before = wc.launch_counts()
     u, v = wc.wave_cycle(p, z, z, s_group_size=8)
-    us, vs = wc.wave_cycle(p, z, z, s_group_size=8, variant="streamed")
+    us, vs = wc.wave_cycle(p, z, z, s_group_size=8,
+                           kernel=wc.k1_kernel(p.S, variant="streamed"))
     torch.cuda.synchronize()
     assert wc.launch_counts() == {
         **before, "sparse_grouped": before["sparse_grouped"] + 1,
@@ -335,4 +336,4 @@ def test_kernel_refuses_bad_groups_and_large_pad(cuda):
     }
     assert (u == 0).all() and (v == 0).all() and (us == 0).all() and (vs == 0).all()
     with pytest.raises(ValueError, match="no kernel resident"):
-        wc.wave_cycle(p, z, z, s_group_size=8, variant="resident")
+        wc.wave_cycle(p, z, z, s_group_size=8, kernel=wc.k1_kernel(p.S, variant="resident"))
