@@ -179,15 +179,18 @@ subprocesses too.
    size the cards give), and ``python -m
    cuddhelmholtz_tpu_torch.examples.scaling`` at nx 128 with and without
    ``--transfer``; the direct rows launch K1 once per sharded matvec.
-33. The tensor-core kernel against the sparse (FFMA) one at every (a) and
-   (b) shape the comparisons of phases 2, 4, 10, 17, 19, 23 and 28 ran,
-   timed in turns in those phases: both ms, the kernel the default picks
-   there, the plain ms, the tensor-core bound and the route's own tile
-   work, and each kernel's registers, warps, shared memory and blocks per
-   SM there.  The shapes lie on both sides of the rule (``mma_preferred``:
-   S's tiles and pad): the square's S at 960 and 3,648 rows, the
-   flagship's at 384, 1,024, 5,472 and 12,000.  (At phase 8's pad 632 the
-   tile form does not fit, and only the sparse kernel runs.)
+33. The factored kernel (layout (a) on rectangles: the flagship's S at
+   384, 1,024, 5,472 and 12,000 rows and at 4 x 256, pad 632's at 12,480)
+   and the tensor-core kernel against the sparse (FFMA) one at every (a)
+   and (b) shape the comparisons of phases 2, 4, 8, 10, 17, 19, 23 and 28
+   ran, timed in turns in those phases: their ms, the kernel the default
+   picks there, the plain ms, each kernel's bound (FP32 FMA on the
+   non-zeros; the tensor-core one's three TF32 passes and the route's own
+   tile work), and each kernel's registers, warps, shared memory and
+   blocks per SM there.  The tensor-core shapes lie on both sides of its
+   rule (``mma_preferred``: S's tiles and pad): the square's S at 960 and
+   3,648 rows, the flagship's at 384, 1,024, 5,472 and 12,000.  (At pad
+   632 the tile form does not fit; the (b) shapes have no factored form.)
 34. (Run right after phase 5, on its operator.)  The transfer apply
    replayed as a CUDA graph (``_graph_phase``): ``DDH.action`` bit for bit
    the eager ``ddh_action_transfer_rolled`` called directly at K = 1 and
@@ -208,14 +211,15 @@ subprocesses too.
    step.  ``python3 -c 'import chip_smoke, sys; sys.exit(chip_smoke.phase_35())'``
    runs phases 1, 5, 34 and 35 alone.
 Every comparison holds a kernel within 2e-4 of the plain cycle relative to
-the max of u and v, with padded slots exactly 0, the tensor-core kernel
-within 2e-4 of the sparse one and bitwise on a repeat.  The main-path runs
-(phases 3, 5, 6, 7, 9, 12, 13, 16, 17, 18, 19, 21, 23, 24, 25, 27-32) must
-launch the kernel the dispatch picks for their shape in each layout
-(``_k1``: ``mma_shared`` / ``mma_grouped`` where the tile form fits and
-the rule of ``kernel_variant`` picks it, ``sparse_*`` elsewhere,
-``sparse_per_row`` for (c)) and no dense one, and every key those checks
-asked for must have launched over them.
+the max of u and v, with padded slots exactly 0, the factored and
+tensor-core kernels within 2e-4 of the sparse one and bitwise on a
+repeat.  The main-path runs (phases 3, 5, 6, 7, 9, 12, 13, 16, 17, 18, 19,
+21, 23, 24, 25, 27-32) must launch the kernel the dispatch picks for their
+shape in each layout (``_k1``: ``factored_shared`` on rectangles,
+``mma_shared`` / ``mma_grouped`` where the tile form fits and the rule of
+``kernel_variant`` picks it, ``sparse_*`` elsewhere, ``sparse_per_row``
+for (c)) and no other and no dense one, and every key those checks asked
+for must have launched over them.
 
 Every kernel count is set to 0 just before each main-path run and read just
 after; the ``launches`` of a kernel in the JSON line is the sum over those
@@ -337,23 +341,24 @@ def _tile_work(tiles, group_rows: int, nt: int, wh_maxit: int) -> float:
 
 
 def _compare(wc, p, F, G, wh_maxit, pad_mask, what, variants, reps=3, form=None, tiles=None,
-             **kw):
+             factored=None, **kw):
     """Each kernel ``variants`` names against the plain cycle on the same
     inputs; raises on a relative error >= 2e-4 or non-zero padding.  Returns
     ({variant: (max abs err, ms)}, plain ms, {variant: (u, v)}).  The plain
     cycle is timed on its checked call; the kernels after their checked
     calls, in turns (v0, v1, ..., v1, v0), ``reps`` launches a turn, so
-    each pair is compared on the card's state of the moment.  ``form`` and
-    ``tiles`` are the sparse and tensor-core kernels' prebuilt forms (None:
-    ``k1_kernel`` builds them, before the runs); with both kernels the
-    tensor-core one is also held to the sparse one (2e-4) and must repeat
-    bitwise.  ``"sparse_tiled"`` runs a per-row stack on the sparse kernel
+    each pair is compared on the card's state of the moment.  ``form``,
+    ``tiles`` and ``factored`` are the sparse, tensor-core and factored
+    kernels' prebuilt forms (None: ``k1_kernel`` builds the first two,
+    before the runs; the factored one needs its form); the tensor-core and
+    factored kernels are also held to the sparse one (2e-4) and must
+    repeat bitwise.  ``"sparse_tiled"`` runs a per-row stack on the sparse kernel
     with each row tiled x8 onto layout (b), as the JAX solver does (and
     the port did before its per-row instance), and reads every 8th row
     back."""
     import torch
 
-    given = {"sparse": form, "mma": tiles}
+    given = {"sparse": form, "mma": tiles, "factored": factored}
     per_row = p.S.dim() == 3 and kw.get("s_group_size") is None
 
     def kernel(v):
@@ -375,15 +380,17 @@ def _compare(wc, p, F, G, wh_maxit, pad_mask, what, variants, reps=3, form=None,
 
     outs = {v: run(v) for v in variants}
     torch.cuda.synchronize()
-    if "mma" in outs:
-        again = run("mma")
-        if not all(torch.equal(a, b) for a, b in zip(again, outs["mma"])):
-            _fail(f"{what}: the tensor-core kernel does not repeat bitwise")
+    for k in ("mma", "factored"):
+        if k not in outs:
+            continue
+        again = run(k)
+        if not all(torch.equal(a, b) for a, b in zip(again, outs[k])):
+            _fail(f"{what}: the {k} kernel does not repeat bitwise")
         if "sparse" in outs:
-            err = max(_rel_max(a, b) for a, b in zip(outs["mma"], outs["sparse"]))
-            print(f"{what}: mma against sparse rel err {err:.3e}; mma repeats bitwise")
+            err = max(_rel_max(a, b) for a, b in zip(outs[k], outs["sparse"]))
+            print(f"{what}: {k} against sparse rel err {err:.3e}; {k} repeats bitwise")
             if not err < 2e-4:
-                _fail(f"{what}: the tensor-core and sparse kernels disagree: {err:.3e}")
+                _fail(f"{what}: the {k} and sparse kernels disagree: {err:.3e}")
         del again
     (u_p, v_p), plain_ms = _timed(lambda: wc.wave_cycle_plain(p, F, G, wh_maxit, **kw))
     errs = {}
@@ -427,32 +434,39 @@ def _depth(tiles) -> int:
 
 def _add_shape(wc, dev, shapes, layout, at, res, plain_ms, bound, pad, nt, wh_maxit, *,
                form=None, form_ms=None, tiles=None, tiles_ms=None, group_rows=None,
-               dense=None):
-    """Append a ``shapes`` row for each K1 kernel ``res`` holds (``"mma"``,
-    ``"sparse"``) at one shape of layout ``layout`` (``"shared"``,
-    ``"grouped"``): its ms, the plain ms and its bound (``bound``, the FP32
-    one on the non-zeros, for the FFMA kernel; ``_mma_bound`` for the
-    tensor-core one, with the informational ``_tile_work`` of
-    ``group_rows`` rows a matrix and the FFMA kernel's ms from the same
-    turns); prints each kernel's registers, shared memory and blocks per SM
+               dense=None, factored=None):
+    """Append a ``shapes`` row for each K1 kernel ``res`` holds
+    (``"factored"``, ``"mma"``, ``"sparse"``) at one shape of layout
+    ``layout`` (``"shared"``, ``"grouped"``): its ms, the plain ms, the
+    kernel the default picks there and its bound (``bound``, the FP32 one
+    on the non-zeros, for the FFMA and factored kernels; ``_mma_bound`` for
+    the tensor-core one, with the informational ``_tile_work`` of
+    ``group_rows`` rows a matrix), with the other kernels' ms from the same
+    turns; prints each kernel's registers, shared memory and blocks per SM
     there."""
+    limit = wc._shared_memory_limit(dev.index)
+    default = wc.kernel_variant(pad, limit, form.stride if form is not None else None,
+                                pairs=tiles.pairs if tiles is not None else None,
+                                factored=factored.shape if factored is not None else None)
+    forms = {"factored": factored, "mma": tiles, "sparse": form}
     occ = {}
-    for k in ("mma", "sparse"):
+    for k in ("factored", "mma", "sparse"):
         if k not in res:
             continue
-        occ[k] = wc.kernel_occupancy(k, pad, tiles if k == "mma" else form, dev)
+        occ[k] = wc.kernel_occupancy(k, pad, forms[k], dev)
         b = bound
         if k == "mma":
             rows = group_rows * tiles.ptr.shape[0]
             b = _mma_bound(tiles, group_rows, rows, pad, nt, wh_maxit)
         row = {"at": at, "ms": res[k][1], "plain_ms": plain_ms, "bound_ms": b[0],
-               "bound_by": b[1], "occupancy": occ[k]}
+               "bound_by": b[1], "occupancy": occ[k], "default": default,
+               **{f"{o}_ms": res[o][1] for o in ("factored", "mma", "sparse")
+                  if o != k and o in res}}
         if k == "mma":
             row.update(pairs=tiles.pairs, depth=_depth(tiles), tiles_ms=tiles_ms,
-                       tile_work_ms=_tile_work(tiles, group_rows, nt, wh_maxit),
-                       default="mma" if wc.mma_preferred(pad, tiles.pairs) else "sparse")
-            if "sparse" in res:
-                row["sparse_ms"] = res["sparse"][1]
+                       tile_work_ms=_tile_work(tiles, group_rows, nt, wh_maxit))
+        elif k == "factored":
+            row.update(shape=list(factored.shape))
         else:
             row.update(nnz=_nnz(form), stride=form.stride, form_ms=form_ms)
         if dense is not None:
@@ -478,28 +492,32 @@ def _rates(what, flop_sparse, rows, pad, nt, wh_maxit, res, bound, by):
 
 def _k1(ddh) -> str:
     """The kernel the DDH's probes (and a shared S's cycles) run in layouts
-    (a) and (b), ``DDH.k1_probe``: ``"mma"`` where ``mma_preferred``
-    holds, else ``"sparse"``."""
+    (a) and (b), ``DDH.k1_probe``: ``"factored"`` on rectangles (from the
+    operator's element factors, where its form fits), ``"mma"`` where
+    ``mma_preferred`` holds, else ``"sparse"``."""
     return ddh.k1_probe.variant
 
 
+K1_KERNELS = ("factored", "mma", "sparse")  # the kernels the default may pick
+
+
 def _only_k1(launches, key, what, want):
-    """Fails unless the run launched ``want``'s kernel (``"mma"`` or
-    ``"sparse"``) in layout ``key``, not the other one there, and no dense
+    """Fails unless the run launched ``want``'s kernel (one of
+    ``K1_KERNELS``) in layout ``key``, no other of them there, and no dense
     kernel; records the key for the final check that every kernel the
     main paths ask for ran.  ``want`` None (a subprocess's several DDHs,
-    whose forms this process cannot see) takes either kernel."""
+    whose forms this process cannot see) takes any of them."""
     layout = {"shared": "a", "grouped": "b", "per_row": "c"}[key]
+    launched = {k: launches.get(f"{k}_{key}", 0) for k in K1_KERNELS}
     if want is None:
-        if not (launches[f"mma_{key}"] or launches[f"sparse_{key}"]) or any(
-                launches[k] for k in DENSE):
+        if not any(launched.values()) or any(launches[k] for k in DENSE):
             _fail(f"{what}: want K1 layout-({layout}) launches and no dense ones, got "
                   f"{launches}")
         return
-    other = {"mma": "sparse", "sparse": "mma"}[want]
-    if (launches[f"{want}_{key}"] == 0 or launches.get(f"{other}_{key}", 0)
+    others = [k for k in K1_KERNELS if k != want]
+    if (launched[want] == 0 or any(launched[k] for k in others)
             or any(launches[k] for k in DENSE)):
-        _fail(f"{what}: want {want} layout-({layout}) launches, no {other} one there and no "
+        _fail(f"{what}: want {want} layout-({layout}) launches, none of {others} there and no "
               f"dense ones, got {launches}")
     REQUIRED.add(f"{want}_{key}")
 
@@ -1884,20 +1902,22 @@ def main() -> int:
     F = torch.from_numpy((rng.standard_normal(gmask.shape) * gmask).astype(np.float32)).to(dev)
     G = torch.from_numpy((rng.standard_normal(gmask.shape) * gmask).astype(np.float32)).to(dev)
 
+    fac_a = ddh.k1.form if k1 == "factored" else None
+    variants_a = ("factored",) * (fac_a is not None) + ("mma", "sparse")
     res_a, plain_ms, uv_a = _compare(wc, p, F, G, ddh.wh_maxit, ddh.gmask == 0,
-                                     "wave cycle (a), flagship", ("mma", "sparse", "resident"),
-                                     form=form_a, tiles=tiles_a)
+                                     "wave cycle (a), flagship", (*variants_a, "resident"),
+                                     form=form_a, tiles=tiles_a, factored=fac_a)
     bound_a, by_a = _cycle_bound(form_a, ddh.n_domains, ddh.n_domains, ddh.pad, ddh.nt,
                                  ddh.wh_maxit)
     _rates("wave cycle (a), flagship", _cycle_flop(form_a, ddh.n_domains, ddh.nt, ddh.wh_maxit),
            ddh.n_domains, ddh.pad, ddh.nt, ddh.wh_maxit, res_a, bound_a, by_a)
-    shapes = {k: [] for k in ("mma_shared", "mma_grouped", "sparse_shared", "sparse_grouped",
-                              "sparse_per_row")}
+    shapes = {k: [] for k in ("factored_shared", "mma_shared", "mma_grouped", "sparse_shared",
+                              "sparse_grouped", "sparse_per_row")}
     _add_shape(wc, dev, shapes, "shared",
                f"flagship, {ddh.n_domains} rows, pad {ddh.pad}, nt {ddh.nt}", res_a, plain_ms,
                (bound_a, by_a), ddh.pad, ddh.nt, ddh.wh_maxit, form=form_a,
                form_ms=form_ms_a, tiles=tiles_a, tiles_ms=tiles_ms_a, group_rows=ddh.n_domains,
-               dense="resident")
+               dense="resident", factored=fac_a)
     # the flagship's S on 384 rows (the FWI's transfer-probe shape: 48 blocks of
     # the tensor-core kernel, fewer than the SMs): few rows on the sparse side
     # of the rule, as the 12,000-row probe of phase 23 is many
@@ -1907,13 +1927,13 @@ def main() -> int:
     F384, G384 = (_masked_normal(rng, m384.cpu().numpy(), dev) for _ in range(2))
     what = "wave cycle (a), flagship S on 384 rows"
     res_384, plain_ms_384, _ = _compare(wc, p384, F384, G384, ddh.wh_maxit, m384 == 0, what,
-                                        ("mma", "sparse"), form=form_a, tiles=tiles_a)
+                                        variants_a, form=form_a, tiles=tiles_a, factored=fac_a)
     _add_shape(wc, dev, shapes, "shared",
                f"flagship S on 384 rows (the FWI transfer probe), pad {ddh.pad}, nt {ddh.nt}",
                res_384, plain_ms_384,
                _cycle_bound(form_a, 384, 384, ddh.pad, ddh.nt, ddh.wh_maxit), ddh.pad, ddh.nt,
                ddh.wh_maxit, form=form_a, form_ms=form_ms_a, tiles=tiles_a,
-               tiles_ms=tiles_ms_a, group_rows=384)
+               tiles_ms=tiles_ms_a, group_rows=384, factored=fac_a)
     del p384, F384, G384, m384
 
     # --- 3. the flagship solve, direct path ------------------------------------
@@ -2074,15 +2094,17 @@ def main() -> int:
     Fa, Ga = _masked_normal(rng, am, dev), _masked_normal(rng, am, dev)
     rows_sa, pad_sa, nt_sa = nu * c, bddh.pad, bddh.nt
     what = f"layout (a), ddh_512_block32 transfer probe ({nu} x {c} rows, pad {pad_sa})"
+    fac_sa = bddh.k1.form if bddh.k1.variant == "factored" else None
     res_sa, plain_ms_sa, _ = _compare(wc, pa, Fa, Ga, bddh.wh_maxit, amask == 0, what,
-                                      ("sparse", "streamed"), reps=1, form=form_sa)
+                                      ("factored",) * (fac_sa is not None) + ("sparse", "streamed"),
+                                      reps=1, form=form_sa, factored=fac_sa)
     bound_sa, by_sa = _cycle_bound(form_sa, rows_sa, rows_sa, pad_sa, nt_sa, bddh.wh_maxit)
     _rates(what, _cycle_flop(form_sa, rows_sa, nt_sa, bddh.wh_maxit), rows_sa, pad_sa, nt_sa,
            bddh.wh_maxit, res_sa, bound_sa, by_sa)
     _add_shape(wc, dev, shapes, "shared",
                f"ddh_512_block32 transfer probe, {rows_sa} rows, pad {pad_sa}, nt {nt_sa}",
                res_sa, plain_ms_sa, (bound_sa, by_sa), pad_sa, nt_sa, bddh.wh_maxit,
-               form=form_sa, form_ms=form_ms_sa, dense="streamed")
+               form=form_sa, form_ms=form_ms_sa, dense="streamed", factored=fac_sa)
     shapes["sparse_shared"][-1]["mma_pairs"] = tiles_sa.pairs
     del res7, bddh, bp, pa, Fa, Ga, amask
     torch.cuda.empty_cache()
@@ -2283,18 +2305,19 @@ def main() -> int:
     rows_h = nu * c
     tiles_h, tiles_ms_h = _tiles_ms(wc, hddh.S)
     what = f"layout (a), ddh_high_frequency transfer probe ({nu} x {c} rows, pad {hddh.pad})"
+    form_h, form_ms_h = _form_ms(wc, hddh.S)
+    fac_h = hddh.k1.form if hddh.k1.variant == "factored" else None
     res_h, plain_ms_h, _ = _compare(wc, ph, Fh, Gh, hddh.wh_maxit, hmask == 0, what,
-                                    ("mma", "sparse"), reps=1, form=hddh.k1.form,
-                                    tiles=tiles_h)
-    bound_h, by_h = _cycle_bound(hddh.k1.form, rows_h, rows_h, hddh.pad, hddh.nt,
-                                 hddh.wh_maxit)
-    _rates(what, _cycle_flop(hddh.k1.form, rows_h, hddh.nt, hddh.wh_maxit), rows_h, hddh.pad,
+                                    ("factored",) * (fac_h is not None) + ("mma", "sparse"),
+                                    reps=1, form=form_h, tiles=tiles_h, factored=fac_h)
+    bound_h, by_h = _cycle_bound(form_h, rows_h, rows_h, hddh.pad, hddh.nt, hddh.wh_maxit)
+    _rates(what, _cycle_flop(form_h, rows_h, hddh.nt, hddh.wh_maxit), rows_h, hddh.pad,
            hddh.nt, hddh.wh_maxit, res_h, bound_h, by_h)
     _add_shape(wc, dev, shapes, "shared",
                f"ddh_high_frequency transfer probe, {rows_h} rows, pad {hddh.pad}, nt {hddh.nt}",
                res_h, plain_ms_h, (bound_h, by_h), hddh.pad, hddh.nt, hddh.wh_maxit,
-               form=hddh.k1.form, form_ms=1e3 * hddh.k1_seconds, tiles=tiles_h,
-               tiles_ms=tiles_ms_h, group_rows=rows_h)
+               form=form_h, form_ms=form_ms_h, tiles=tiles_h, tiles_ms=tiles_ms_h,
+               group_rows=rows_h, factored=fac_h)
     del res17, hddh, hp, ph, Fh, Gh, hmask
     torch.cuda.empty_cache()
     print(f"phase 17: {time.perf_counter() - t17:.1f} s")
@@ -2410,17 +2433,19 @@ def main() -> int:
     rows_k = K19 * vddh.n_domains
     tiles_k, tiles_ms_k = _tiles_ms(wc, vddh.S)
     what = f"layout (a), direct multi-source block matvec ({K19} x {vddh.n_domains} rows)"
+    form_k, form_ms_k = _form_ms(wc, vddh.S)
+    fac_k = vddh.k1.form if vddh.k1.variant == "factored" else None
     res_k, plain_ms_k, _ = _compare(wc, pk, Fk, Gk, vddh.wh_maxit, kmask == 0, what,
-                                    ("mma", "sparse"), form=vddh.k1.form, tiles=tiles_k)
-    bound_k, by_k = _cycle_bound(vddh.k1.form, rows_k, rows_k, vddh.pad, vddh.nt,
-                                 vddh.wh_maxit)
-    _rates(what, _cycle_flop(vddh.k1.form, rows_k, vddh.nt, vddh.wh_maxit), rows_k, vddh.pad,
+                                    ("factored",) * (fac_k is not None) + ("mma", "sparse"),
+                                    form=form_k, tiles=tiles_k, factored=fac_k)
+    bound_k, by_k = _cycle_bound(form_k, rows_k, rows_k, vddh.pad, vddh.nt, vddh.wh_maxit)
+    _rates(what, _cycle_flop(form_k, rows_k, vddh.nt, vddh.wh_maxit), rows_k, vddh.pad,
            vddh.nt, vddh.wh_maxit, res_k, bound_k, by_k)
     _add_shape(wc, dev, shapes, "shared",
                f"direct multi-source matvec, {K19} x {vddh.n_domains} rows, pad {vddh.pad}, "
                f"nt {vddh.nt}", res_k, plain_ms_k, (bound_k, by_k), vddh.pad, vddh.nt,
-               vddh.wh_maxit, form=vddh.k1.form, form_ms=1e3 * vddh.k1_seconds,
-               tiles=tiles_k, tiles_ms=tiles_ms_k, group_rows=rows_k)
+               vddh.wh_maxit, form=form_k, form_ms=form_ms_k, tiles=tiles_k,
+               tiles_ms=tiles_ms_k, group_rows=rows_k, factored=fac_k)
     del rb, rv, vddh, vbs, solo, pk, Fk, Gk
     torch.cuda.empty_cache()
     print(f"phase 19: {time.perf_counter() - t19:.1f} s")
@@ -2570,18 +2595,19 @@ def main() -> int:
     rows_23 = nu * c
     tiles_23, tiles_ms_23 = _tiles_ms(wc, cddh.S)
     what = f"layout (a), nx 512 / block 16 transfer probe ({nu} x {c} rows, pad {cddh.pad})"
+    form_23, form_ms_23 = _form_ms(wc, cddh.S)
+    fac_23 = cddh.k1.form if cddh.k1.variant == "factored" else None
     res_23, plain_ms_23, _ = _compare(wc, p23, F23, G23, cddh.wh_maxit, m23 == 0, what,
-                                      ("mma", "sparse"), reps=1, form=cddh.k1.form,
-                                      tiles=tiles_23)
-    bound_23, by_23 = _cycle_bound(cddh.k1.form, rows_23, rows_23, cddh.pad, cddh.nt,
-                                   cddh.wh_maxit)
-    _rates(what, _cycle_flop(cddh.k1.form, rows_23, cddh.nt, cddh.wh_maxit), rows_23,
+                                      ("factored",) * (fac_23 is not None) + ("mma", "sparse"),
+                                      reps=1, form=form_23, tiles=tiles_23, factored=fac_23)
+    bound_23, by_23 = _cycle_bound(form_23, rows_23, rows_23, cddh.pad, cddh.nt, cddh.wh_maxit)
+    _rates(what, _cycle_flop(form_23, rows_23, cddh.nt, cddh.wh_maxit), rows_23,
            cddh.pad, cddh.nt, cddh.wh_maxit, res_23, bound_23, by_23)
     _add_shape(wc, dev, shapes, "shared",
                f"nx 512 / block 16 transfer probe, {rows_23} rows, pad {cddh.pad}, "
                f"nt {cddh.nt}", res_23, plain_ms_23, (bound_23, by_23), cddh.pad, cddh.nt,
-               cddh.wh_maxit, form=cddh.k1.form, form_ms=1e3 * cddh.k1_seconds,
-               tiles=tiles_23, tiles_ms=tiles_ms_23, group_rows=rows_23)
+               cddh.wh_maxit, form=form_23, form_ms=form_ms_23, tiles=tiles_23,
+               tiles_ms=tiles_ms_23, group_rows=rows_23, factored=fac_23)
     del res23, cddh, cp, p23, F23, G23, m23
     torch.cuda.empty_cache()
     print(f"phase 23: {time.perf_counter() - t23:.1f} s")
@@ -2622,7 +2648,15 @@ def main() -> int:
                   f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms ({row['bound_by']}, "
                   f"{row['bound_ms'] / row['ms']:.1%} of it)")
 
-    # --- 33. the tensor-core kernel against the FFMA one at every shape ----------
+    # --- 33. the factored and tensor-core kernels against the FFMA one ---------
+    for row in shapes["factored_shared"]:
+        others = ", ".join(f"{o} {row[o + '_ms']:.3f} ms ({row[o + '_ms'] / row['ms']:.2f}x)"
+                           for o in ("sparse", "mma") if o + "_ms" in row)
+        print(f"phase 33, {row['at']}: factored {row['ms']:.3f} ms against {others} in the "
+              f"same turns; default {row['default']}; plain {row['plain_ms']:.3f} ms; bound "
+              f"(FP32 FMA on the non-zeros) {row['bound_ms']:.3f} ms ({row['bound_by']}, "
+              f"{row['bound_ms'] / row['ms']:.1%} of it); lines, rs, L {row['shape']}; "
+              f"{json.dumps(row['occupancy'])}")
     for row in shapes["mma_shared"] + shapes["mma_grouped"]:
         print(f"phase 33, {row['at']}: mma {row['ms']:.3f} ms against sparse (FFMA) "
               f"{row['sparse_ms']:.3f} ms in the same turns ({row['sparse_ms'] / row['ms']:.2f}x); "
@@ -2643,7 +2677,13 @@ def main() -> int:
 
     mma_a, mma_b = shapes["mma_shared"][0], shapes["mma_grouped"]
     mma_b = next(r for r in mma_b if r["at"].startswith("L3"))
-    print(json.dumps({"kernels": [
+    fac_rows = shapes["factored_shared"]
+    fac_entry = [entry(
+        "wave_cycle factored (a) shared S", "wave_cycle_factored.cu", 69, "factored_shared",
+        max(r["factored"][0] for r in (res_a, res_384, res_sa, res_h, res_k, res_23)
+            if "factored" in r),
+        fac_rows[0]["ms"], plain_ms, bound_a, by_a, shapes=fac_rows)] if fac_rows else []
+    print(json.dumps({"kernels": fac_entry + [
         entry("wave_cycle mma (a) shared S", "wave_cycle_mma.cu", 69, "mma_shared",
               max(res_a["mma"][0], res_384["mma"][0], res_h["mma"][0], res_k["mma"][0],
                   res_23["mma"][0]),

@@ -9,7 +9,9 @@ counterpart is easy to find:
   ops/        matrix-free stiffness, mass and face mass, the structured grid
               numbering (GridH1Space) and kron fast path, functionals;
               ops/cuda: the Hopper WaveHoltz kernels
-              (``csrc/wave_cycle_mma.cu``, S's non-zero 8 x 8 tiles on the
+              (``csrc/wave_cycle_factored.cu``, S from the element factors
+              grid line by grid line on rectangles,
+              ``csrc/wave_cycle_mma.cu``, S's non-zero 8 x 8 tiles on the
               tensor cores in a 3-pass TF32 split, and
               ``csrc/wave_cycle_sparse.cu``, S's non-zeros with FP32 FFMA,
               each the default where measured faster; the dense

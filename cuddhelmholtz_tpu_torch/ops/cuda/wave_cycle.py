@@ -12,10 +12,16 @@ Pallas kernel's three stiffness layouts:
       onto (b) (its ``solvers/ddh.py::_wave_cycle``: free on the TPU's 8-row
       tile, 8x the work here).  ``cycle_route`` decides.
 
-Four kernels serve the layouts.  ``k1_kernel`` is the one place that chooses
+Five kernels serve the layouts.  ``k1_kernel`` is the one place that chooses
 among them: it applies the rule of ``kernel_variant`` once, on S's shape,
-tiles and non-zeros and the card's shared memory, and builds only the form
-of S the chosen kernel reads (a ``K1``).  ``csrc/wave_cycle_mma.cu``
+tiles, non-zeros and element factors and the card's shared memory, and
+builds only the form of S the chosen kernel reads (a ``K1``).
+``csrc/wave_cycle_factored.cu`` never forms S: from the derivative matrix
+and the element factors upstream's ``stiffness<NB>`` applies it from (the
+DDH's ``ElementFactors``), it applies S grid line by grid line
+(``factored_form``: on rectangles, B = 0, each element's stiffness is a
+sum of line matrices), in layouts (a) and (b), the default wherever it is
+given those factors and its form fits.  ``csrc/wave_cycle_mma.cu``
 applies S on the tensor cores (``mma.sync`` m16n8k8, a 3-pass TF32 split,
 the counterpart of the Pallas kernel's 3-pass bf16 split on the MXU) from
 its non-zero 8 x 8 tiles (``tile_form``), in layouts (a) and (b), the
@@ -58,6 +64,7 @@ import subprocess
 from pathlib import Path
 from typing import NamedTuple
 
+import numpy as np
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
@@ -83,14 +90,24 @@ MMA_MAX_PAD = TILE * max(slots * cap for slots, cap in MMA_INSTANCES)
 # MMA_PREFERRED_TILES k-tiles per output-column tile in its largest group.
 MMA_PREFERRED_MAX_PAD = TILE * MMA_INSTANCES[0][1]  # one slot a warp: 192
 MMA_PREFERRED_TILES = 9
-VARIANTS = ("mma", "sparse", "resident", "streamed")
+# csrc/wave_cycle_factored.cu: threads a block, a segment's nodes (degree 3),
+# and the segments a line the kernel takes
+FACTORED_THREADS = 128
+FACTORED_NB = 4
+FACTORED_SEGMENTS = (4, 8)
+# |B| at or below this share of the largest |A|, |C| is the round-off of a
+# rectangle's geometry: the factored form reads it as 0
+FACTORED_B_ROUNDOFF = 1e-12
+VARIANTS = ("mma", "sparse", "resident", "streamed", "factored")
 # the counter prefix of the kernel launches, and the route keys it counts
 LAUNCHES = "k1.launches."
 ROUTE_KEYS = ("shared", "grouped", "streamed_shared", "streamed_grouped", "sparse_shared",
-              "sparse_grouped", "sparse_per_row", "mma_shared", "mma_grouped")
+              "sparse_grouped", "sparse_per_row", "mma_shared", "mma_grouped", "factored_shared",
+              "factored_grouped")
 
 _PKG = Path(__file__).resolve().parents[2]
 SOURCES = {
+    "factored": _PKG / "csrc" / "wave_cycle_factored.cu",
     "mma": _PKG / "csrc" / "wave_cycle_mma.cu",
     "sparse": _PKG / "csrc" / "wave_cycle_sparse.cu",
     "resident": _PKG / "csrc" / "wave_cycle.cu",
@@ -98,8 +115,8 @@ SOURCES = {
 }
 # prefix of each library's C entry points
 _ENTRY = {
-    "mma": "wave_cycle_mma_", "sparse": "wave_cycle_sparse_", "resident": "wave_cycle_",
-    "streamed": "wave_cycle_streamed_",
+    "factored": "wave_cycle_factored_", "mma": "wave_cycle_mma_", "sparse": "wave_cycle_sparse_",
+    "resident": "wave_cycle_", "streamed": "wave_cycle_streamed_",
 }
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
@@ -149,28 +166,68 @@ def mma_preferred(pad: int, pairs: int) -> bool:
     return pad <= MMA_PREFERRED_MAX_PAD and TILE * pairs >= MMA_PREFERRED_TILES * pad
 
 
+def factored_pairs(L: int) -> int:
+    """(row, position) pairs a thread of the factored kernel updates for
+    lines of ``L`` segments (``pairs_for`` in csrc/wave_cycle_factored.cu)."""
+    return 3 if L <= 4 else 5
+
+
+def factored_rows(nlines: int, rs: int, L: int) -> int:
+    """Rows a block of the factored kernel owns for ``nlines`` lines of
+    ``L`` segments a row and a row stride of ``rs`` positions (``rows_for``
+    in csrc/wave_cycle_factored.cu): the most of 8, 4, 2, 1 whose 2 R nlines
+    line items fit its FACTORED_THREADS threads and whose R rs positions
+    they hold, ``factored_pairs(L)`` each; 0 when none does or the kernel
+    has no instance for L."""
+    if L not in FACTORED_SEGMENTS:
+        return 0
+    for r in (8, 4, 2, 1):
+        if 2 * r * nlines <= FACTORED_THREADS and r * rs <= factored_pairs(L) * FACTORED_THREADS:
+            return r
+    return 0
+
+
+def factored_shared_memory_bytes(rows: int, rs: int) -> int:
+    """Dynamic shared memory one block of the factored kernel needs: the
+    stacked [p ; p_half] rows of its ``rows`` subdomains and the x and y
+    planes of line products for both, ``rs`` floats a row each."""
+    return 4 * 6 * rows * rs
+
+
 def kernel_variant(pad: int, limit: int, stride: int | None = None,
                    variant: str | None = None, per_row: bool = False,
-                   pairs: int | None = None) -> str:
+                   pairs: int | None = None,
+                   factored: tuple[int, int, int] | None = None) -> str:
     """The kernel that runs a cycle at ``pad`` on a card that allows
-    ``limit`` bytes of shared memory per block, for a tile form of ``pairs``
-    non-zero 8 x 8 tiles per group (``TileS.pairs``; None: no form) and a
-    sparse form of ``stride`` entries per group (``SparseS.stride``: the
-    non-zeros as the kernel stages them, at least the nnz; None: no form).
-    ``per_row``: a layout-(c) stack, which the sparse kernel runs one row
-    per block and the tensor-core kernel does not take.
+    ``limit`` bytes of shared memory per block, for a factored form of
+    shape ``factored`` (``(nlines, rs, L)`` of a ``FactoredS``,
+    ``FactoredS.shape``; None: no such form), a tile form of
+    ``pairs`` non-zero 8 x 8 tiles per group (``TileS.pairs``; None: no
+    form) and a sparse form of ``stride`` entries per group
+    (``SparseS.stride``: the non-zeros as the kernel stages them, at least
+    the nnz; None: no form).  ``per_row``: a layout-(c) stack, which the
+    sparse kernel runs one row per block and the factored and tensor-core
+    kernels do not take.
 
-    By default: ``"mma"`` when ``mma_preferred`` holds and the tile form
-    and the row state fit (pad <= MMA_MAX_PAD and
-    ``mma_shared_memory_bytes`` <= limit), else ``"sparse"`` when the
-    sparse form and the row state fit (pad <= SPARSE_MAX_PAD and
-    ``sparse_shared_memory_bytes`` <= limit), else ``"resident"`` when the
-    dense S and the row state fit and pad <= MAX_THREADS / 2, else
-    ``"streamed"`` (pad <= STREAMED_MAX_PAD).  The choice rests on these
-    shapes alone.  ``variant`` names the kernel instead.  Raises when the
-    chosen kernel does not take the shape."""
+    By default: ``"factored"`` wherever its form fits (``factored_rows`` >
+    0, ``factored_shared_memory_bytes`` <= limit): on an NVIDIA H100 80GB
+    HBM3 at 700 W it ran 2.1 to 3.2 times as fast as the sparse kernel at
+    every shape timed, 384 to 12,000 rows at pad 176 and 1,024 and 12,480
+    at pad 632 (``examples/k1_study.py``; PERF.md section 6), and the
+    tensor-core kernel is slower than the sparse one there; else ``"mma"`` when
+    ``mma_preferred`` holds and the tile form and the row state fit (pad <=
+    MMA_MAX_PAD and ``mma_shared_memory_bytes`` <= limit), else
+    ``"sparse"`` when the sparse form and the row state fit (pad <=
+    SPARSE_MAX_PAD and ``sparse_shared_memory_bytes`` <= limit), else
+    ``"resident"`` when the dense S and the row state fit and pad <=
+    MAX_THREADS / 2, else ``"streamed"`` (pad <= STREAMED_MAX_PAD).  The
+    choice rests on these shapes alone.  ``variant`` names the kernel
+    instead.  Raises when the chosen kernel does not take the shape."""
     block_rows = 1 if per_row else SPARSE_ROWS_PER_BLOCK
+    f_rows = 0 if factored is None else factored_rows(*factored)
     fits = {
+        "factored": f_rows > 0 and not per_row and factored[1] >= pad
+        and factored_shared_memory_bytes(f_rows, factored[1]) <= limit,
         "mma": pairs is not None and not per_row and pad <= MMA_MAX_PAD and pad % TILE == 0
         and mma_shared_memory_bytes(pad, pairs) <= limit,
         "sparse": stride is not None and pad <= SPARSE_MAX_PAD
@@ -179,7 +236,8 @@ def kernel_variant(pad: int, limit: int, stride: int | None = None,
         "streamed": pad <= STREAMED_MAX_PAD and streamed_shared_memory_bytes(pad) <= limit,
     }
     if variant is None:
-        first = ("mma",) if pairs is not None and mma_preferred(pad, pairs) else ()
+        first = ("factored",) + (("mma",) if pairs is not None and mma_preferred(pad, pairs)
+                                 else ())
         for name in (*first, "sparse", "resident", "streamed"):
             if fits[name]:
                 return name
@@ -188,6 +246,7 @@ def kernel_variant(pad: int, limit: int, stride: int | None = None,
     elif fits[variant]:
         return variant
     need = {
+        "factored": None if not f_rows else factored_shared_memory_bytes(f_rows, factored[1]),
         "mma": None if pairs is None else mma_shared_memory_bytes(pad, pairs),
         "sparse": None if stride is None else sparse_shared_memory_bytes(pad, stride, block_rows),
         "resident": shared_memory_bytes(pad),
@@ -195,10 +254,12 @@ def kernel_variant(pad: int, limit: int, stride: int | None = None,
     }
     raise ValueError(
         f"wave_cycle: no kernel{'' if variant is None else ' ' + variant} takes pad={pad} "
-        f"(tile pairs {pairs}, sparse stride {stride}{', per-row S' if per_row else ''}): "
-        f"bytes of shared memory per block {need}, the card allows {limit} B; pad <= "
-        f"{MMA_MAX_PAD} (mma, layouts (a) and (b)), {SPARSE_MAX_PAD} (sparse), "
-        f"{MAX_THREADS // 2} (resident), {STREAMED_MAX_PAD} (streamed)"
+        f"(factored {factored}, tile pairs {pairs}, sparse stride {stride}"
+        f"{', per-row S' if per_row else ''}): bytes of shared memory per block {need}, the "
+        f"card allows {limit} B; pad <= {MMA_MAX_PAD} (mma, layouts (a) and (b)), "
+        f"{SPARSE_MAX_PAD} (sparse), {MAX_THREADS // 2} (resident), {STREAMED_MAX_PAD} "
+        f"(streamed); factored: layouts (a) and (b), 2 x lines <= {FACTORED_THREADS}, "
+        f"{FACTORED_SEGMENTS} segments a line"
     )
 
 
@@ -221,9 +282,10 @@ def cycle_route(variant: str, ndom: int, ngroups: int | None,
     ``ndom`` rows against ``ndom`` groups with no copies; the dense kernels'
     blocks need runs of ROWS_PER_BLOCK rows, so they take each row
     ROWS_PER_BLOCK times in layout (b), as the JAX solver does; the
-    tensor-core kernel does not take (c).  Raises when the rows do not
+    tensor-core and factored kernels do not take (c).  Raises when the rows do not
     match the groups."""
-    prefix = {"mma": "mma_", "sparse": "sparse_", "resident": "", "streamed": "streamed_"}[variant]
+    prefix = {"factored": "factored_", "mma": "mma_", "sparse": "sparse_", "resident": "",
+              "streamed": "streamed_"}[variant]
     if ngroups is None:
         if s_group_size is not None:
             raise ValueError("wave_cycle: s_group_size needs a 3-D stiffness stack")
@@ -240,9 +302,9 @@ def cycle_route(variant: str, ndom: int, ngroups: int | None,
         raise ValueError(f"wave_cycle: a per-row stack of {ngroups} matrices for {ndom} rows")
     if variant == "sparse":
         return Route("sparse_per_row", ndom, ndom, 1, 1)
-    if variant == "mma":
-        raise ValueError("wave_cycle: the mma kernel does not take a per-row stack (layout (c)); "
-                         "its sparse per-row instance does")
+    if variant in ("mma", "factored"):
+        raise ValueError(f"wave_cycle: the {variant} kernel does not take a per-row stack "
+                         "(layout (c)); the sparse per-row instance does")
     r = ROWS_PER_BLOCK
     return Route(prefix + "grouped", r * ndom, ndom, r, r)
 
@@ -515,10 +577,289 @@ def _sparse_apply(form: SparseS):
     return apply_S
 
 
+class ElementFactors(NamedTuple):
+    """The subdomain stiffness of ``ngroups`` matrices as the data upstream's
+    ``stiffness<NB>`` applies it from, on the host in float64
+    (``solvers/ddh.py::_assemble_subdomain_stiffness`` computes them):
+    ``S = sum_e P_e^T K_e P_e`` over a group's elements, K_e the element
+    stiffness from the derivative matrix D and the element's factors A, B,
+    C collocated at its nodes, P_e the slots of its nodes.  Node (iy, ix)
+    of an element is index ``nb * iy + ix``."""
+
+    D: np.ndarray  # (nb, nb): D[q, k], basis k's derivative at node q
+    factors: np.ndarray  # (ngroups, nel, 3, nb * nb): A, B, C at each node
+    slots: np.ndarray  # (ngroups, nel, nb * nb) slot of each node; -1: a padding element
+
+    def take(self, index) -> "ElementFactors":
+        """The factors of the groups ``index`` (as ``S[index]``)."""
+        index = np.asarray(index.cpu() if isinstance(index, torch.Tensor) else index)
+        return ElementFactors(self.D, self.factors[index], self.slots[index])
+
+    @property
+    def rectangles(self) -> bool:
+        """B vanishes in every element, to FACTORED_B_ROUNDOFF of the
+        largest |A|, |C|: the elements are axis-aligned rectangles."""
+        scale = max(float(np.abs(self.factors[:, :, 0::2]).max(initial=0.0)), 1e-300)
+        return float(np.abs(self.factors[:, :, 1]).max(initial=0.0)) <= FACTORED_B_ROUNDOFF * scale
+
+
+class FactoredS(NamedTuple):
+    """The stiffness as what it is summed from, for ``ngroups`` matrices:
+    the derivative matrix, each element's factors and its nodes' positions
+    (for any element, the CPU's plain apply), and, on rectangles (B = 0,
+    held as 0), the form the factored kernel reads: each grid line of a
+    subdomain as ``L`` segments of nb nodes with the symmetric matrix of
+    each, the sum over the elements that hold the segment of their line
+    matrices ``D^T diag(A[l, :]) D`` (rows, x lines first: ``nlx`` of them)
+    or ``D^T diag(C[:, k]) D`` (columns).  Every real node lies on one x
+    line and one y line.  A kernel row holds ``rs`` >= pad positions;
+    ``order`` maps each to its slot.  A line shorter than L ends in
+    segments of zeros whose nodes sit at a position no slot holds.
+    """
+
+    D: torch.Tensor  # (nb, nb) D[q, k], S's dtype
+    factors: torch.Tensor  # (ngroups, nel, 3, nb * nb) A, B, C at node (iy, ix), S's dtype
+    slots: torch.Tensor  # (ngroups, nel, nb * nb) int16 position of each element node, -1 padding
+    order: torch.Tensor  # (ngroups, rs) int16 slot at each position, -1 none
+    lines: torch.Tensor  # (ngroups, nlines, 3 L + 1) int16 position of each line node
+    mats: torch.Tensor  # (ngroups, nlines, L, 10) segment matrices, upper triangle by rows
+    nlx: int  # the lines along x (the first ones)
+
+    @property
+    def shape(self) -> tuple[int, int, int]:
+        """(nlines, rs, L), the shape ``kernel_variant`` reads."""
+        return self.lines.shape[1], self.order.shape[1], self.mats.shape[2]
+
+    def take(self, index: torch.Tensor) -> "FactoredS":
+        """The form of the groups ``index`` (as ``S[index]``)."""
+        return FactoredS(self.D, *(t[index].contiguous() for t in self[1:6]), self.nlx)
+
+
+def factored_row_stride(pad: int, rows: int) -> int:
+    """Positions of a factored-kernel row: the least rs >= pad whose
+    ``rows`` rows span a multiple of 16 floats, so that the planes and
+    vectors of a block start in bank 0 and a line writes its plane in the
+    banks it reads its row from."""
+    unit = 16 // np.gcd(16, rows)
+    return -(-pad // unit) * unit
+
+
+def _place_slots(nodes: np.ndarray, pad: int, rs: int, rows: int) -> np.ndarray:
+    """The position of each of ``pad`` slots in a row of ``rs`` positions
+    for phase-1 items reading the slots ``nodes`` (nitems, nn) (-1: none)
+    of each row: item i is line i % nitems of block row (i / nitems) %
+    rows in vector i / (nitems rows), 32 to a warp.  Greedy, slot by slot
+    in falling count of items: the bank (position mod 32) in which the
+    lanes that read the slot find fewest slots of the same node index
+    already; within a bank in that order.  Slots no item reads take the
+    positions left."""
+    nl, nn = nodes.shape
+    items = np.arange(2 * rows * nl)
+    line = items % nl
+    off = (((items // (nl * rows)) * rows + (items // nl) % rows) * rs) % 32
+    warp = items // 32
+    node_of = np.full((pad, nl), -1)
+    ll, jj = np.nonzero(nodes >= 0)
+    node_of[nodes[ll, jj], ll] = jj
+    inc = np.bincount(nodes[nodes >= 0], minlength=pad)
+    order = np.argsort(-inc, kind="stable")
+    order = order[inc[order] > 0]
+    counts = np.zeros((warp[-1] + 1, nn, 32), np.int64)
+    cap = np.array([len(range(b, rs, 32)) for b in range(32)])
+    banks = np.arange(32)
+    pos = np.full(pad, -1)
+    for s in order:
+        n = node_of[s, line]
+        lane = n >= 0
+        w, nd, o = warp[lane], n[lane], off[lane]
+        cost = counts[w[:, None], nd[:, None], (banks[None, :] + o[:, None]) % 32].sum(0)
+        cost[cap == 0] = np.iinfo(np.int64).max
+        b = int(np.argmin(cost))
+        pos[s] = b + 32 * (len(range(b, rs, 32)) - cap[b])
+        cap[b] -= 1
+        np.add.at(counts, (w, nd, (b + o) % 32), 1)
+    rest = np.nonzero(pos < 0)[0]
+    pos[rest] = np.setdiff1d(np.arange(rs), pos[pos >= 0])[:len(rest)]
+    return pos
+
+
+def _grid_lines(D: np.ndarray, factors: np.ndarray, slots: np.ndarray):
+    """One group's grid lines on rectangles: (x lines, y lines), each a list
+    of chains [(nodes (nb,), matrix (nb, nb)), ...] whose consecutive
+    segments share a node.  Element rows (x) and columns (y) on the same
+    nodes are one segment whose matrix is the sum of theirs; segments are
+    linked at shared end nodes.  Raises where the segments do not form
+    lines (a node shared by more than two segments of a direction, or a
+    closed loop)."""
+    nb = D.shape[0]
+    live = slots[:, 0] >= 0
+    A = factors[live, 0].reshape(-1, nb, nb)
+    C = factors[live, 2].reshape(-1, nb, nb)
+    sl = slots[live].reshape(-1, nb, nb)  # [e, iy, ix]
+    kx = np.einsum("qa,elq,qb->elab", D, A, D)  # row l of each element
+    ky = np.einsum("qa,eqk,qb->ekab", D, C, D)  # column k
+    out = []
+    for nodes_of, mats in ((sl, kx), (sl.transpose(0, 2, 1), ky)):
+        segs = {}
+        for e in range(sl.shape[0]):
+            for i in range(nb):
+                key, mat = tuple(nodes_of[e, i]), mats[e, i]
+                if key[::-1] in segs:
+                    key, mat = key[::-1], mat[::-1, ::-1]
+                segs[key] = segs.get(key, 0) + mat
+        ends = {}
+        for key in segs:
+            for end in (key[0], key[-1]):
+                ends.setdefault(end, []).append(key)
+        if any(len(v) > 2 for v in ends.values()):
+            raise ValueError("wave_cycle: the elements' segments do not form grid lines")
+        chains, seen = [], set()
+        for start in sorted(n for n, v in ends.items() if len(v) == 1):
+            node, chain = start, []
+            while True:
+                nxt = [k for k in ends[node] if k not in seen]
+                if not nxt:
+                    break
+                key = nxt[0]
+                seen.add(key)
+                mat = segs[key]
+                if key[0] != node:
+                    key, mat = key[::-1], mat[::-1, ::-1]
+                chain.append((np.asarray(key), mat))
+                node = key[-1]
+            if chain:
+                chains.append(chain)
+        if len(seen) != len(segs):
+            raise ValueError("wave_cycle: the elements' segments close a loop")
+        out.append(chains)
+    return out
+
+
+def factored_form(factors: ElementFactors, pad: int, dtype: torch.dtype = torch.float32,
+                  device=None) -> FactoredS:
+    """The ``FactoredS`` of ``factors`` for rows of ``pad`` slots, in
+    ``dtype`` on ``device``.  On rectangles (``ElementFactors.rectangles``)
+    B is set to 0 and each group's grid lines are built (``_grid_lines``),
+    padded to the longest with segments of zeros, and the slots placed in
+    a row of ``factored_row_stride`` positions by ``_place_slots``; else
+    the form holds no line (``nlines`` 0) and only the plain apply reads
+    it."""
+    ng, nel, nb2 = factors.slots.shape
+    nb = factors.D.shape[0]
+    live = factors.slots[:, :, 0] >= 0
+    fac = factors.factors.copy()
+    rect = factors.rectangles
+    groups = [_grid_lines(factors.D, fac[g], factors.slots[g]) for g in range(ng)] if rect else []
+    if rect:
+        fac[:, :, 1] = 0.0
+        nlx = max(len(x) for x, _ in groups)
+        nlines = max(len(x) + len(y) for x, y in groups)
+        L = max(len(c) for x, y in groups for c in x + y)
+        L = next((k for k in FACTORED_SEGMENTS if k >= L), L)
+    else:
+        nlx, nlines, L = 0, 0, 1
+    short = rect and any(len(c) < L for x, y in groups for c in x + y) or any(
+        len(x) < nlx or len(x) + len(y) < nlines for x, y in groups)
+    rows = factored_rows(nlines, pad + 1, L) or 1
+    rs = factored_row_stride(pad + short, rows) if rect else pad
+    nodes = np.full((ng, nlines, 3 * L + 1), -1, np.int64)
+    mats = np.zeros((ng, nlines, L, 10))
+    iu = np.triu_indices(nb)
+    for g, (xs, ys) in enumerate(groups):
+        for i, chain in enumerate(xs + [None] * (nlx - len(xs)) + ys):
+            for s, (seg, mat) in enumerate(chain or []):
+                nodes[g, i, 3 * s:3 * s + nb] = seg
+                mats[g, i, s] = mat[iu]
+    pos = np.zeros((ng, rs), np.int64)
+    order = np.full((ng, rs), -1, np.int64)
+    for g in range(ng):
+        where = (_place_slots(nodes[g], pad, rs, rows) if rect
+                 else np.arange(pad))
+        order[g, where] = np.arange(pad)
+        pos[g, :pad] = where
+    free = np.argmax(order < 0, axis=1)  # a position no slot holds, where one is needed
+    at = np.where(nodes >= 0, np.take_along_axis(pos, np.maximum(nodes, 0).reshape(ng, -1), 1)
+                  .reshape(nodes.shape), free[:, None, None])
+    el = np.take_along_axis(pos, np.maximum(factors.slots, 0).reshape(ng, -1), 1)
+    el = np.where(live[:, :, None], el.reshape(ng, nel, nb2), -1)
+
+    def dev(a, t):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=t, device=device)
+
+    return FactoredS(dev(factors.D, dtype), dev(fac, dtype), dev(el, torch.int16),
+                     dev(order, torch.int16), dev(at, torch.int16), dev(mats, dtype), nlx)
+
+
+def _element_matrices(form: FactoredS) -> torch.Tensor:
+    """(ngroups, nel, nb2, nb2): each element's stiffness K[i, j] (output
+    node i, input node j; node (iy, ix) is nb iy + ix) from D and its
+    factors by the general sum factorisation ``D^T (A ux + B uy)`` along
+    rows plus ``D^T (B ux + C uy)`` along columns, applied to each unit
+    vector."""
+    ng, nel, nb2 = form.slots.shape
+    nb = form.D.shape[0]
+    D = form.D
+    A, B, C = (form.factors[:, :, i].reshape(ng, nel, 1, nb, nb) for i in range(3))
+    X = torch.eye(nb2, dtype=D.dtype, device=D.device).reshape(nb2, nb, nb)  # unit vector j
+    ux = torch.einsum("qk,jlk->jlq", D, X)  # d/dxi at node (l, q)
+    uy = torch.einsum("ql,jlk->jqk", D, X)  # d/deta at node (q, k)
+    wx = A * ux + B * uy
+    wy = B * ux + C * uy
+    out = torch.einsum("qk,gejlq->gejlk", D, wx) + torch.einsum("ql,gejqk->gejlk", D, wy)
+    return out.reshape(ng, nel, nb2, nb2).transpose(2, 3)
+
+
+def _factored_apply(form: FactoredS, pad: int):
+    """``p -> p @ S`` through the form: on rectangles as the factored kernel
+    computes it, each grid line's product (its segments' matrices added
+    into one) added into its nodes' slots, x lines first, so a slot sums
+    its x product and then its y product; else each element's stiffness
+    (``_element_matrices``) added into its nodes' slots, element by
+    element.  ``p``'s rows run in ``ngroups`` equal runs, one per group."""
+    ng, nel, nb2 = form.slots.shape
+    nlines, _, L = form.shape
+    nb = form.D.shape[0]
+    order = form.order.long()
+    trash = pad  # the row that takes a padded node's product
+    if nlines:
+        # each line's (3L + 1)-square matrix: its segments' added in order
+        iu = torch.triu_indices(nb, nb)
+        seg = torch.zeros((ng, nlines, L, nb, nb), dtype=form.mats.dtype,
+                          device=form.mats.device)
+        seg[..., iu[0], iu[1]] = form.mats
+        seg[..., iu[1], iu[0]] = form.mats
+        K = torch.zeros((ng, nlines, 3 * L + 1, 3 * L + 1), dtype=seg.dtype, device=seg.device)
+        for s in range(L):
+            K[:, :, 3 * s:3 * s + nb, 3 * s:3 * s + nb] += seg[:, :, s]
+        src = order.gather(1, form.lines.long().reshape(ng, -1)).reshape(form.lines.shape)
+        nodes = torch.where(src >= 0, src, trash)
+    else:
+        K = _element_matrices(form)
+        at = form.slots.long()
+        src = order.gather(1, at.clamp_min(0).reshape(ng, -1)).reshape(ng, nel, nb2)
+        nodes = torch.where((at >= 0) & (src >= 0), src, trash)
+
+    def apply_S(p):
+        pg = p.reshape(ng, -1, pad)
+        c = pg.shape[1]
+        out = []
+        for h in range(ng):
+            pt = torch.cat([pg[h].t(), torch.zeros((1, c), dtype=p.dtype, device=p.device)])
+            x = pt.index_select(0, nodes[h].reshape(-1)).reshape(*nodes[h].shape, c)
+            # x lines come first: a slot's x product, then its y product
+            y = torch.bmm(K[h], x).reshape(-1, c)
+            z = torch.zeros((pad + 1, c), dtype=p.dtype, device=p.device)
+            z = z.index_add_(0, nodes[h].reshape(-1), y)[:pad]
+            out.append(z.t())
+        return out[0] if ng == 1 else torch.stack(out).reshape(p.shape)
+
+    return apply_S
+
+
 def wave_cycle_plain(
     params, F: torch.Tensor, G: torch.Tensor, wh_maxit: int = WH_MAXIT,
     s_group_size: int | None = None, sparse: SparseS | None = None,
-    tiles: TileS | None = None, split: bool = False,
+    tiles: TileS | None = None, split: bool = False, factored: FactoredS | None = None,
 ):
     """Plain PyTorch WaveHoltz cycle (the JAX package's ``_wave_cycle_xla``).
 
@@ -527,8 +868,10 @@ def wave_cycle_plain(
     stack: with ``s_group_size`` rows run in groups of that many against one
     matrix each, without it every row has its own.  With ``sparse`` (the
     ``sparse_form`` of S) S is applied through that form's CSC arrays, with
-    ``tiles`` (its ``tile_form``) through its non-zero 8 x 8 tiles, in place
-    of the dense product.  ``split`` (with ``tiles``, float32 only) applies
+    ``tiles`` (its ``tile_form``) through its non-zero 8 x 8 tiles, with
+    ``factored`` (a ``factored_form`` of S's element factors) element by
+    element as the factored kernel applies it, in place of the dense
+    product.  ``split`` (with ``tiles``, float32 only) applies
     the CPU model of the tensor-core kernel's 3-pass TF32 split
     (``_tile_apply``), for the tests; no solver path passes it.  Returns
     the filtered (u, v), each shaped like ``F``.
@@ -543,7 +886,14 @@ def wave_cycle_plain(
     ngroups = 1 if S.dim() == 2 else S.shape[0]
     if split and tiles is None:
         raise ValueError("wave_cycle: the split model runs through a tile form (tiles=)")
-    if tiles is not None:
+    if factored is not None:
+        if factored.slots.shape[0] != ngroups:
+            raise ValueError(
+                f"wave_cycle: factored form of {factored.slots.shape[0]} groups for S "
+                f"{tuple(S.shape)}"
+            )
+        apply_S = _factored_apply(factored, S.shape[-1])
+    elif tiles is not None:
         if tiles.ptr.shape[0] != ngroups:
             raise ValueError(
                 f"wave_cycle: tile form of {tiles.ptr.shape[0]} groups for S {tuple(S.shape)}"
@@ -655,6 +1005,20 @@ def _library(variant: str) -> ctypes.CDLL:
         return f
 
     fn("error_string", [i32], ctypes.c_char_p)
+    if variant == "factored":
+        fn("launch", [ptr] * 3 + [i32] * 4 + [ptr] * 7 + [i32] * 5 + [f32, f32, i32, ptr], i32)
+        fn("blocks_per_sm", [i32] * 4, i32)
+        fn("registers", [i32] * 3, i32)
+        smem = fn("shared_memory_bytes", [i32] * 2, ctypes.c_longlong)
+        rows, pairs = fn("rows_per_block", [i32] * 3, i32), fn("pairs", [i32], i32)
+        same = (fn("threads", [], i32)() == FACTORED_THREADS
+                and smem(2, 176) == factored_shared_memory_bytes(2, 176)
+                and all(pairs(L) == factored_pairs(L) for L in FACTORED_SEGMENTS)
+                and all(rows(n, rs, L) == factored_rows(n, rs, L) for n in (1, 9, 26, 50, 65)
+                        for rs in (176, 320, 640, 1600) for L in (3, 4, 8)))
+        if not same:
+            raise RuntimeError("wave_cycle: factored library constants disagree with the wrapper")
+        return lib
     rows = fn("rows_per_block", [], i32)()
     if variant == "mma":
         fn("launch", [ptr] * 4 + [i32] + [ptr] * 7 + [i32] * 5 + [f32, f32, i32, ptr], i32)
@@ -717,9 +1081,17 @@ def _check_operands(params, F: torch.Tensor, G: torch.Tensor) -> None:
         raise ValueError(f"wave_cycle: pad={pad} must be a multiple of 8")
 
 
-def _check_form(form: SparseS | TileS, ngroups: int, pad: int, device: torch.device) -> None:
-    """The arrays of a sparse or tile form as its kernel reads them."""
-    if isinstance(form, TileS):
+def _check_form(form: SparseS | TileS | FactoredS, ngroups: int, pad: int,
+                device: torch.device) -> None:
+    """The arrays of a sparse, tile or factored form as its kernel reads them."""
+    if isinstance(form, FactoredS):
+        kind, (nlines, rs, L) = "factored", form.shape
+        expect = {
+            "order": (form.order, torch.int16, (ngroups, rs)),
+            "lines": (form.lines, torch.int16, (ngroups, nlines, 3 * L + 1)),
+            "mats": (form.mats, torch.float32, (ngroups, nlines, L, 10)),
+        }
+    elif isinstance(form, TileS):
         kind, (slots, warps), pairs = "tile", mma_layout(pad), form.pairs
         expect = {
             "val": (form.val, torch.float32, (ngroups, pairs, TILE * TILE)),
@@ -750,13 +1122,13 @@ def _check_form(form: SparseS | TileS, ngroups: int, pad: int, device: torch.dev
 
 class K1(NamedTuple):
     """A K1 kernel and the form of S it reads: ``variant`` (one of
-    ``VARIANTS``) and ``form``, the ``TileS`` of the tensor-core kernel,
-    the ``SparseS`` of the sparse one, or None for a dense kernel, which
-    reads S itself.  ``k1_kernel`` builds it; ``wave_cycle(kernel=)`` runs
-    it as it is."""
+    ``VARIANTS``) and ``form``, the ``FactoredS`` of the factored kernel,
+    the ``TileS`` of the tensor-core kernel, the ``SparseS`` of the sparse
+    one, or None for a dense kernel, which reads S itself.  ``k1_kernel``
+    builds it; ``wave_cycle(kernel=)`` runs it as it is."""
 
     variant: str
-    form: TileS | SparseS | None
+    form: FactoredS | TileS | SparseS | None
 
     def take(self, index: torch.Tensor) -> "K1":
         """This kernel on the groups ``index`` of its S (as ``S[index]``)."""
@@ -773,23 +1145,36 @@ class K1(NamedTuple):
 
 
 def k1_kernel(S: torch.Tensor, index: torch.Tensor | None = None, per_row: bool = False, *,
-              variant: str | None = None) -> K1:
+              variant: str | None = None, factors: ElementFactors | None = None) -> K1:
     """The kernel that runs cycles on ``S`` ((pad, pad), or (ngroups, pad,
     pad) of which the cycles read the groups ``index``, None: all) on S's
     card, with the form of those groups it reads, built here and only for
-    that kernel.  ``per_row``: a layout-(c) stack.
+    that kernel.  ``per_row``: a layout-(c) stack.  ``factors``: S's
+    ``ElementFactors`` (the same groups as S), where the caller has them.
 
-    The rule of ``kernel_variant``, applied once on S's pad, tiles
-    (``tile_pairs``) and non-zeros and the card's shared memory per block:
-    the tensor-core kernel where ``mma_preferred`` holds and its form fits,
-    else the sparse kernel where its form fits, else the resident one, else
-    the streamed one.  ``variant`` forces a kernel instead, to hold the
-    kernels against each other; it raises where that kernel does not take
-    S."""
+    The rule of ``kernel_variant``, applied once on S's pad, element
+    factors, tiles (``tile_pairs``) and non-zeros and the card's shared
+    memory per block: the factored kernel where it is given factors of
+    degree-3 rectangles and its form fits, else the tensor-core kernel
+    where ``mma_preferred`` holds and its form fits, else the sparse
+    kernel where its form fits, else the resident one, else the streamed
+    one.  ``variant`` forces a kernel instead, to
+    hold the kernels against each other; it raises where that kernel does
+    not take S (the factored one without ``factors``)."""
     if index is not None:
         S = S[index]
+        factors = None if factors is None else factors.take(index)
     pad = S.shape[-1]
     limit = _shared_memory_limit(S.device.index)
+    if variant == "factored" and factors is None:
+        raise ValueError("wave_cycle: the factored kernel needs S's element factors (factors=)")
+    if (factors is not None and not per_row and variant in (None, "factored")
+            and factors.D.shape[0] == FACTORED_NB and factors.rectangles):
+        form = factored_form(factors, pad, S.dtype, S.device)
+        if kernel_variant(pad, limit, None, variant, per_row, factored=form.shape) == "factored":
+            return K1("factored", form)
+    if variant == "factored":
+        kernel_variant(pad, limit, None, variant, per_row)  # raises: no form it takes
     if not per_row and pad % TILE == 0 and (
             variant == "mma" or variant is None and pad <= MMA_PREFERRED_MAX_PAD):
         if kernel_variant(pad, limit, None, variant, per_row, tile_pairs(S)) == "mma":
@@ -816,8 +1201,8 @@ def wave_cycle(
     ``ROWS_PER_BLOCK`` times in layout (b) and the result is read back once
     (``cycle_route``).  Launches are counted in ``k1.launches.<key>`` under
     the route's key (``ROUTE_KEYS``): ``"shared"`` (a), ``"grouped"`` (b,
-    and (c) on a dense kernel) with an ``"mma_"``, ``"sparse_"`` or
-    ``"streamed_"`` prefix for those kernels, and ``"sparse_per_row"`` (c);
+    and (c) on a dense kernel) with a ``"factored_"``, ``"mma_"``,
+    ``"sparse_"`` or ``"streamed_"`` prefix for those kernels, and ``"sparse_per_row"`` (c);
     ``k1.rows`` and ``k1.flop`` count the rows the kernel or the plain
     cycle runs (``_count_work``; a dense kernel's (c) counts its tiled
     rows).  Anything else raises; nothing falls back.
@@ -856,7 +1241,11 @@ def wave_cycle(
         ndom, pad, params.tables.shape[0], wh_maxit,
     )
     tail = (params.dt, params.K0, F.device.index, torch.cuda.current_stream(F.device).cuda_stream)
-    if variant == "mma":
+    if variant == "factored":
+        nlines, rs, L = form.shape
+        head = (form.mats.data_ptr(), form.lines.data_ptr(), form.order.data_ptr(), nlines,
+                form.nlx, L, rs)
+    elif variant == "mma":
         head = (form.val.data_ptr(), form.kt.data_ptr(), form.ptr.data_ptr(),
                 form.col.data_ptr(), form.pairs)
     elif variant == "sparse":
@@ -924,11 +1313,20 @@ def sparse_blocks_per_sm(pad: int, stride: int, per_row: bool, device: torch.dev
 
 def kernel_occupancy(variant: str, pad: int, form, device: torch.device,
                      per_row: bool = False) -> dict:
-    """Registers a thread, warps and dynamic shared memory a block and blocks
-    per SM of the ``"mma"`` kernel for the tile form ``form`` or of the
+    """Registers a thread, warps, rows and dynamic shared memory a block and
+    blocks per SM of the ``"factored"`` kernel for the factored form
+    ``form``, of the ``"mma"`` kernel for the tile form ``form`` or of the
     ``"sparse"`` one for the sparse form ``form`` (``per_row``: its per-row
     instance) at ``pad`` on the CUDA ``device``."""
-    if variant == "mma":
+    if variant == "factored":
+        lib = _library("factored")
+        nlines, rs, L = form.shape
+        rows = factored_rows(nlines, rs, L)
+        blocks = lib.wave_cycle_factored_blocks_per_sm(nlines, rs, L, device.index)
+        out = {"registers": lib.wave_cycle_factored_registers(rows, L, device.index),
+               "warps": FACTORED_THREADS // 32, "rows": rows,
+               "shared_memory_bytes": factored_shared_memory_bytes(rows, rs)}
+    elif variant == "mma":
         regs = ctypes.c_int(0)
         blocks = _library("mma").wave_cycle_mma_blocks_per_sm(pad, form.pairs, device.index,
                                                                ctypes.byref(regs))

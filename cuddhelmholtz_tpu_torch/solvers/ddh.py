@@ -32,9 +32,10 @@ plane-wave coarse correction of ``solvers/coarse.py``.
 The port pads a subdomain to a multiple of ``PAD_MULTIPLE`` = 8 DOFs (169 ->
 176 at the flagship, 625 -> 632 with 32-DOF blocks) instead of the JAX
 package's 128.  On the card each wave cycle runs a ``K1`` kernel that
-``ops/cuda/wave_cycle.py::k1_kernel`` chose for S, with the form of S it
-reads.  The operator holds two, each built on first use and handed to
-every later cycle: ``k1`` for its own cycles (the rule's kernel for a
+``ops/cuda/wave_cycle.py::k1_kernel`` chose for S and the operator's
+``element_factors`` (what ``_assemble_subdomain_stiffness`` sums S from),
+with the form of S it reads.  The operator holds two, each built on first
+use and handed to every later cycle: ``k1`` for its own cycles (the rule's kernel for a
 shared S, the per-row one for a per-domain S) and ``k1_probe`` for its
 probes (``k1`` for a shared S; for a per-domain S the rule's kernel for
 the unique subdomains' matrices).
@@ -71,7 +72,14 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.cuda.wave_cycle import K1, ROWS_PER_BLOCK, WH_MAXIT, k1_kernel, wave_cycle
+from ..ops.cuda.wave_cycle import (
+    K1,
+    ROWS_PER_BLOCK,
+    WH_MAXIT,
+    ElementFactors,
+    k1_kernel,
+    wave_cycle,
+)
 from ..ops.mass import assembly_table, lumped_mass_diagonal
 from ..spaces.ensemble import EnsembleSpace, structured_labels
 from ..spaces.h1 import H1Space
@@ -152,12 +160,15 @@ def _f32(x) -> float:
 
 def _assemble_subdomain_stiffness(
     space: H1Space, efem: EnsembleSpace, local_dofs_perm: np.ndarray, pad: int
-) -> tuple[np.ndarray, bool]:
+) -> tuple[np.ndarray, bool, ElementFactors]:
     """Dense assembled subdomain stiffness from GLL-collocated factors.
 
-    Returns ``(S, shared)``: one ``(pad, pad)`` matrix with ``shared=True``
-    when every subdomain provably assembles the same matrix (identical local
-    numbering and element geometry), else the ``(ndom, pad, pad)`` stack.
+    Returns ``(S, shared, factors)``: one ``(pad, pad)`` matrix with
+    ``shared=True`` when every subdomain provably assembles the same matrix
+    (identical local numbering and element geometry), else the ``(ndom,
+    pad, pad)`` stack; and the ``ElementFactors`` S is summed from (the
+    derivative matrix, each element's A, B, C and its nodes' slots), one
+    group for the shared S, else one a subdomain.
     """
     nb = space.n_basis
     nb2 = nb * nb
@@ -173,7 +184,8 @@ def _assemble_subdomain_stiffness(
     nel = space.mesh.n_elem
     # the element stiffness is linear in these per-element factors
     G = np.concatenate([A.reshape(nel, nb2), B.reshape(nel, nb2), C.reshape(nel, nb2)], axis=1)
-    Kb = _stiffness_factor_basis(space.basis.derivative_matrix)
+    D = np.asarray(space.basis.derivative_matrix, dtype=np.float64)
+    Kb = _stiffness_factor_basis(D)
 
     ndom = efem.n_domains
     n_elems = efem.n_elems[:ndom]
@@ -193,7 +205,8 @@ def _assemble_subdomain_stiffness(
             for el in range(ne0):
                 ix = idx[0, el]
                 S0[np.ix_(ix, ix)] += S_el0[el]
-            return S0, True
+            factors = ElementFactors(D, G[gels[0]].reshape(1, ne0, 3, nb2), idx[:1, :ne0])
+            return S0, True, factors
 
     # general case: one matmul for all element matrices, then one flat
     # scatter-add over all (domain, element) pairs
@@ -206,7 +219,9 @@ def _assemble_subdomain_stiffness(
     flat = (dom * pad + ix[:, :, :, None]) * pad + ix[:, :, None, :]
     S = np.zeros(ndom * pad * pad)
     np.add.at(S, flat.reshape(-1), vals.reshape(-1))
-    return S.reshape(ndom, pad, pad), False
+    factors = ElementFactors(D, (G[gels] * valid[:, :, None]).reshape(ndom, mx, 3, nb2),
+                             np.where(valid[:, :, None], idx, -1))
+    return S.reshape(ndom, pad, pad), False, factors
 
 
 def _stiffness_factor_basis(D: np.ndarray) -> np.ndarray:
@@ -476,10 +491,11 @@ class DDH(nn.Module):
         with np.errstate(divide="ignore"):
             inv_mi = np.where(valid, 1.0 / (a_sub**2 * np.where(valid, m_sub, 1.0)), 0.0)
 
-        S, shared = _assemble_subdomain_stiffness(space, efem, local_dofs_perm, pad)
+        S, shared, factors = _assemble_subdomain_stiffness(space, efem, local_dofs_perm, pad)
         if shared or n_domains == 1:
             self.shared_S = True
             S_dev = S if S.ndim == 2 else S[0]
+            factors = factors.take([0])
         else:
             # numeric detection via two random matvec probes; agreement below
             # fp32 resolution counts as identical
@@ -490,6 +506,10 @@ class DDH(nn.Module):
                 np.abs(sp - sp[0]).max() < 1e-6 * scale * np.abs(probes).max() * pad
             )
             S_dev = S[0] if self.shared_S else S
+            if self.shared_S:
+                factors = factors.take([0])
+        # what S is summed from, kept for the factored K1 kernel (``k1``)
+        self.element_factors = factors
 
         # compact trace-exchange tables over face-space DOFs (pf = mx_fdof)
         fslot = efem.pI[:, :mx_fdof].astype(np.int32, copy=True)
@@ -573,12 +593,14 @@ class DDH(nn.Module):
     @property
     def k1(self) -> K1:
         """The K1 kernel of this operator's cycles and the form of S it
-        reads (``k1_kernel``): the rule's kernel for a shared S, the
-        per-row one for a per-domain S.  Built on first use (timed in
-        ``k1_seconds``) and kept for every later cycle."""
+        reads (``k1_kernel``, given the operator's ``element_factors``): the
+        rule's kernel for a shared S, the per-row one for a per-domain S.
+        Built on first use (timed in ``k1_seconds``) and kept for every
+        later cycle."""
         if self._k1 is None:
             t0 = time.perf_counter()
-            self._k1 = k1_kernel(self.S, per_row=self.S.dim() == 3)
+            self._k1 = k1_kernel(self.S, per_row=self.S.dim() == 3,
+                                 factors=self.element_factors)
             _sync(self.S.device)
             self.k1_seconds = time.perf_counter() - t0
         return self._k1
@@ -592,7 +614,8 @@ class DDH(nn.Module):
             return self.k1
         if self._k1_probe is None:
             uidx, _, _ = self._domain_groups()
-            self._k1_probe = k1_kernel(self.S, torch.as_tensor(uidx, device=self.S.device))
+            self._k1_probe = k1_kernel(self.S, torch.as_tensor(uidx, device=self.S.device),
+                                       factors=self.element_factors)
         return self._k1_probe
 
     @property

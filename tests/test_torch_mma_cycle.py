@@ -331,8 +331,9 @@ def test_tile_pairs_counts_without_the_form(case, monkeypatch):
 
 @pytest.mark.parametrize("unstructured", [False, True])
 def test_ddh_builds_only_the_form_it_runs(unstructured, monkeypatch):
-    """A shared S's cycles and probes run one kernel, the rule's, and the
-    operator builds only its form; a per-domain S's probes run the rule's
+    """A shared S's cycles and probes run one kernel, the rule's (on these
+    rectangles the factored one, from the operator's element factors), and
+    the operator builds only its form; a per-domain S's probes run the rule's
     kernel for the unique matrices, whose form is built without the
     cycles' per-row one.  The setup-cache key on the CPU builds no
     kernel."""
@@ -347,7 +348,7 @@ def test_ddh_builds_only_the_form_it_runs(unstructured, monkeypatch):
         assert ddh._k1 is None
         return
     kernel = ddh.k1
-    assert kernel.variant == "sparse" and type(kernel.form) is wc.SparseS
+    assert kernel.variant == "factored" and type(kernel.form) is wc.FactoredS
     assert ddh.k1_probe is kernel
 
 

@@ -156,16 +156,18 @@ def test_sparse_plain_ragged_groups_match_dense():
 def test_ddh_holds_its_sparse_form(monkeypatch):
     """The operator builds its kernel, the sparse one with the form of its
     own S, on first use, on its device, and keeps it; cycles on the CPU do
-    not build it."""
+    not build it.  A per-domain S (the unstructured square's) runs its
+    cycles on the sparse kernel's per-row instance; a shared S on
+    rectangles runs the factored kernel (``test_torch_factored_cycle.py``)."""
     _h100_limit(monkeypatch)
-    ddh = _structured("cpu", 16, 16, 20.0)
+    ddh = _unstructured("cpu")
     ddh.action(torch.zeros(ddh.size))
     assert ddh._k1 is None and ddh.k1_seconds is None
     kernel = ddh.k1
     assert kernel.variant == "sparse"
-    assert torch.equal(_dense(kernel.form, ddh.pad)[0], ddh.S)
+    assert torch.equal(_dense(kernel.form, ddh.pad), ddh.S)
     assert kernel.form.val.dtype == torch.float32 and ddh.k1_seconds >= 0
-    assert ddh.k1 is kernel and ddh.k1_probe is kernel
+    assert ddh.k1 is kernel and ddh.k1_probe is not kernel
 
 
 # (pad, sparse-form stride) of every configuration the repo runs, from this
@@ -215,13 +217,13 @@ def test_route_of_each_layout(variant):
     """(a) and (b) run the caller's rows; (c) runs each row once in the
     sparse kernel's per-row instance, and ROWS_PER_BLOCK times in layout
     (b) on a dense kernel, whose blocks need runs of that many rows; the
-    tensor-core kernel does not take (c)."""
+    tensor-core and factored kernels do not take (c)."""
     prefix = {"mma": "mma_", "sparse": "sparse_", "resident": "",
-              "streamed": "streamed_"}[variant]
+              "streamed": "streamed_", "factored": "factored_"}[variant]
     assert wc.cycle_route(variant, 1024, None) == wc.Route(prefix + "shared", 1024, 1, 1, 0)
     assert wc.cycle_route(variant, 960, 8, 120) == wc.Route(prefix + "grouped", 960, 8, 1, 120)
     r = wc.ROWS_PER_BLOCK
-    if variant == "mma":
+    if variant in ("mma", "factored"):
         with pytest.raises(ValueError, match="per-row stack"):
             wc.cycle_route(variant, 1024, 1024)
     else:
@@ -323,7 +325,7 @@ def test_sparse_shared_matches_plain_and_dense(cuda, pad):
     rng = np.random.default_rng(6)
     F, G = _masked(rng, ddh.gmask), _masked(rng, ddh.gmask)
     p = ddh.params
-    u, v = _run(p, F, G, "sparse_shared", ddh.gmask, kernel=ddh.k1)
+    u, v = _run(p, F, G, "sparse_shared", ddh.gmask, kernel=wc.k1_kernel(p.S))
     _close(u, v, *wc.wave_cycle_plain(p, F, G, 1))
     for variant in ("resident", "streamed") if pad == 176 else ("streamed",):
         key = "shared" if variant == "resident" else "streamed_shared"
@@ -368,8 +370,9 @@ def test_sparse_per_row_matches_plain(cuda, pad):
 @pytest.mark.cuda
 def test_sharded_ddh_runs_the_operators_kernel(cuda, monkeypatch):
     """A world-1 ``ShardedDDH`` over a card DDH with a shared S runs its
-    cycles on the DDH's own kernel object (``DDH.k1``), under the same
-    launch key, and builds no kernel of its own."""
+    cycles on the DDH's own kernel object (``DDH.k1``, the factored one on
+    these rectangles), under the same launch key, and builds no kernel of
+    its own."""
     from cuddhelmholtz_tpu_torch.parallel import sharding
 
     ddh = _structured(cuda, *STRUCTURED[176])
@@ -387,7 +390,8 @@ def test_sharded_ddh_runs_the_operators_kernel(cuda, monkeypatch):
     sharded.action(lam)
     torch.cuda.synchronize()
     assert len(kernels) == 1 and kernels[0] is ddh.k1 and sharded._k1 is None
-    assert wc.launch_counts() == {**before, "sparse_shared": before["sparse_shared"] + 1}
+    key = ddh.k1.variant + "_shared"
+    assert wc.launch_counts() == {**before, key: before[key] + 1}
     ddh.action(lam)
     torch.cuda.synchronize()
-    assert wc.launch_counts()["sparse_shared"] == before["sparse_shared"] + 2
+    assert wc.launch_counts()[key] == before[key] + 2
