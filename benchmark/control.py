@@ -27,8 +27,6 @@ import sys
 import torch
 
 from . import check, spec
-from .reference.ddh import ReferenceDDH
-from .reference.grid import Grid
 from .run import log, run_cell
 from .traffic import make_pool
 
@@ -37,7 +35,7 @@ def reference_control(cell: spec.Cell, seed: int, device="cuda") -> dict:
     """The "ddh" control: the TF32 reference in the program's place on the
     first requests of the seed's pool, judged by the cell's check."""
     cfg, traffic = cell.config, cell.traffic
-    grid = Grid(cfg["nx"], cfg["deg"])
+    grid = cell.grid()
     solver = dict(cfg["solver"], **traffic.get("solver", {}))
     pool = make_pool(cell, seed, grid, device)[: cell.sample]
     xy = torch.as_tensor(grid.coords(), device=device)
@@ -47,8 +45,7 @@ def reference_control(cell: spec.Cell, seed: int, device="cuda") -> dict:
         for req in pool:
             if ref is None or req.a is not None:
                 a = cell.speed(xy) if req.a is None else req.a
-                ref = ReferenceDDH(grid, cfg["omega"], a.cpu().numpy(), cfg["block_size"],
-                                   cfg["wh_maxit"], device, dtype=torch.float32)
+                ref = cell.reference(grid, a.cpu().numpy(), device, torch.float32)
             U = ref.solve(req.b.reshape(-1, req.b.shape[-1]), tol=solver["tol"], m=solver["m"],
                           maxit=solver["maxit"], strict=False)
             items.append((req, U.to(torch.float64).reshape(req.b.shape)))

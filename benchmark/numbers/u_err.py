@@ -1,14 +1,13 @@
 """u_err: for the compared requests, the relative distance
 ||U - U_ref|| / ||U_ref|| of each solution from the plain reference DDH solve
-(``reference/ddh.py``) of the same forcing and, for a "model" request, the
-same wave-speed model, to the configuration's ``reference_tol``; the
-reading is the largest."""
+(``cell.reference``: ``reference/ddh.py`` unless the configuration names
+another) of the same forcing and, for a "model" request, the same wave-speed
+model, to the configuration's ``reference_tol``; the reading is the
+largest."""
 
 import sys
 
 import torch
-
-from benchmark.reference.ddh import ReferenceDDH
 
 
 def reading(cell, grid, items, device) -> float:
@@ -21,8 +20,7 @@ def reading(cell, grid, items, device) -> float:
         ref = shared if req.a is None else None
         if ref is None:
             a = cell.speed(xy) if req.a is None else req.a
-            ref = ReferenceDDH(grid, c["omega"], a.cpu().numpy(), c["block_size"], c["wh_maxit"],
-                               device)
+            ref = cell.reference(grid, a.cpu().numpy(), device, torch.float64)
             if req.a is None:
                 shared = ref
         b = req.b.reshape(-1, req.b.shape[-1])

@@ -282,6 +282,13 @@ class ReferenceDDH:
         return self.postprocess(lam, f)
 
 
+def build(config: dict, grid: Grid, a_nodal: np.ndarray, device, dtype) -> ReferenceDDH:
+    """The reference of a configuration on the structured grid: its square
+    subdomains of ``block_size`` DOFs a side."""
+    c = config
+    return ReferenceDDH(grid, c["omega"], a_nodal, c["block_size"], c["wh_maxit"], device, dtype)
+
+
 def gmres(matvec, b: torch.Tensor, tol: float, m: int, maxit: int,
           strict: bool = True) -> torch.Tensor:
     """Restarted GMRES(m) with two-pass classical Gram-Schmidt; the least

@@ -35,7 +35,6 @@ from dataclasses import dataclass, field  # noqa: E402
 import torch  # noqa: E402
 
 from . import spec  # noqa: E402
-from .reference.grid import Grid  # noqa: E402
 from .trace import DeviceTrace, device_ops  # noqa: E402
 from .traffic import make_pool  # noqa: E402
 
@@ -94,7 +93,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, device="cu
     from . import check, system as sut
 
     cfg, traffic = cell.config, cell.traffic
-    grid = Grid(cfg["nx"], cfg["deg"])
+    grid = cell.grid()
     spans = sut.Spans()
     if control and cfg["kind"] != "helmholtz_ddh":
         raise ValueError("the program has a float32 path only for the float64 coupled solve")

@@ -14,9 +14,25 @@ and the code that a configuration or a check names is found the same way:
     benchmark/systems/<kind>.py       (``System``: the system under test)
     benchmark/speeds/<speed>.py       (``speed(xy)``: the wave-speed model)
     benchmark/numbers/<number>.py     (``reading(cell, grid, items, device)``)
+    benchmark/grids/<grid>.py         (``grid(config)``: the canonical discretisation)
+    benchmark/reference/<reference>.py
+                                      (``build(config, grid, a_nodal, device, dtype)``:
+                                       the plain DDH reference, with ``ReferenceDDH.solve``)
 
-so a new cell, configuration, speed model, check number or metric is new
-files and entries only.
+so a new cell, configuration, discretisation, reference, speed model, check
+number or metric is new files and entries only.  A configuration without
+``"grid"`` is on the ``"structured"`` grid, and one without ``"reference"``
+is checked against ``"ddh"``.
+
+A grid is all the harness knows of the canonical discretisation, the node
+numbering that every benchmark input and reference quantity is written in:
+
+    ndof                the number of nodes
+    coords()            (ndof, 2) float64 node coordinates
+    lumped_mass()       (ndof,) the GLL-collocated (lumped) mass diagonal
+    match(coords)       the canonical id of each of the (n, 2) points, which
+                        raises where a point is not a node within 1e-9 or
+                        two points are one node
 """
 
 from __future__ import annotations
@@ -24,7 +40,7 @@ from __future__ import annotations
 import importlib.util
 import json
 import sys
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
@@ -34,6 +50,9 @@ ROOT = HERE.parent
 # JAX itself (compared whole, since the port's name begins with the JAX
 # package's)
 FORBIDDEN = frozenset({"jax", "jaxlib", "flax", "cuddhelmholtz_tpu"})
+
+# the code a configuration names by these keys, where it names none
+DEFAULT = {"grid": "structured", "reference": "ddh"}
 
 
 def forbidden_modules(names=None) -> list[str]:
@@ -51,10 +70,15 @@ _MODULES: dict = {}
 
 
 def load_module(base: Path, folder: str, name: str):
-    """The module ``<base>/<folder>/<name>.py``, loaded once."""
+    """The module ``<base>/<folder>/<name>.py``, loaded once.  A module of a
+    package folder (``reference/``) is loaded under the package's name, so
+    that its relative imports resolve."""
     path = base / folder / f"{name}.py"
     if path not in _MODULES:
-        key = f"benchmark_{folder}_{name}".replace(".", "_").replace("-", "_")
+        if (base / folder / "__init__.py").is_file():
+            key = f"{__package__}.{folder}.{name}"
+        else:
+            key = f"benchmark_{folder}_{name}".replace(".", "_").replace("-", "_")
         spec = importlib.util.spec_from_file_location(key, path)
         mod = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(mod)
@@ -82,6 +106,22 @@ class Cell:
     end_to_end: list  # the metric entries this cell reports with --trace 0
     per_layer: list  # ... and with --trace 1
     base: Path = HERE
+    _grid: object = field(default=None, init=False, repr=False, compare=False)
+
+    def grid(self):
+        """The canonical discretisation, ``grids/<grid>.py::grid(config)``,
+        built once."""
+        if self._grid is None:
+            self._grid = load_module(self.base, "grids",
+                                     self.config.get("grid", DEFAULT["grid"])).grid(self.config)
+        return self._grid
+
+    def reference(self, grid, a_nodal, device, dtype):
+        """The plain DDH reference of the nodal model ``a_nodal`` (canonical
+        numbering), ``reference/<reference>.py::build``."""
+        name = self.config.get("reference", DEFAULT["reference"])
+        build = load_module(self.base, "reference", name).build
+        return build(self.config, grid, a_nodal, device, dtype)
 
     def system(self):
         """The class of the system under test, ``systems/<kind>.py``."""
@@ -108,9 +148,15 @@ def load_cell(name: str, bench: dict | None = None, base: Path = HERE) -> Cell:
         raise KeyError(f"no workload {name!r} in BENCHMARK.json")
     w = cells[name]
     own = load_json(base / "cells" / f"{name}.json")
+    config = load_json(base / "configs" / f"{w['config']}.json")
+    for key, folder in (("grid", "grids"), ("reference", "reference")):
+        code = config.get(key, DEFAULT[key])
+        if not (base / folder / f"{code}.py").is_file():
+            raise ValueError(f"configuration {w['config']!r} names the {key} {code!r}: "
+                             f"there is no {folder}/{code}.py")
     return Cell(
         name=name,
-        config=load_json(base / "configs" / f"{w['config']}.json"),
+        config=config,
         traffic=load_json(base / "traffic" / f"{w['traffic']}.json"),
         check={k: float(v) for k, v in own["check"].items()},
         sample=own["sample"],

@@ -58,14 +58,21 @@ def sync(device) -> None:
         torch.cuda.synchronize()
 
 
-def build_ddh(config: dict, a: np.ndarray, space, device, spans: Spans) -> tuple[DDH, dict]:
+def build_ddh(config: dict, a: np.ndarray, space, device, spans: Spans,
+              partition: tuple | None = None) -> tuple[DDH, dict]:
     """The configuration's DDH on the nodal model ``a`` (the program's
     numbering), each step in a span; returns it and what building it
-    counted."""
+    counted.  Its subdomains are the configuration's square blocks of
+    ``block_size`` DOFs on the ``nx`` x ``nx`` grid, or the system's
+    ``partition``: ``(element_labels, n_domains)`` of the space's mesh."""
     c = config
+    if partition is None:
+        where = {"nx": c["nx"], "ny": c["nx"], "block_size": c["block_size"]}
+    else:
+        where = {"element_labels": partition[0], "n_domains": partition[1]}
     t0 = spans.now()
-    ddh = DDH(c["omega"], a, space, nx=c["nx"], ny=c["nx"], wh_maxit=c["wh_maxit"],
-              block_size=c["block_size"], device=device, **c.get("ddh_options", {}))
+    ddh = DDH(c["omega"], a, space, wh_maxit=c["wh_maxit"], device=device, **where,
+              **c.get("ddh_options", {}))
     t = spans.add("DDH()", t0)
     counts = {"ctor_s": (t - t0) / 1e9}
     if c["transfer"]:

@@ -4,10 +4,10 @@ postprocess, no ``prepare``) and its six per-layer readers.
 
 The cell cut to nx 8 runs on the CPU, is correct against the plain
 reference and reports ``setup_s`` and ``rhs_per_s``; the run writes no file
-of the benchmark.  Each reader gets a synthetic trace and recording, and
-reads nothing where its trace or counter is absent: an untraced run, a
-program without the recorder, and the parent of the direct-apply counter,
-which counts no ``ddh.action.direct``."""
+of the benchmark.  Each of its seven readers gets a synthetic trace and
+recording, and reads nothing where its trace or counter is absent: an
+untraced run, a program without the recorder, and the parent of the
+direct-apply counter, which counts no ``ddh.action.direct``."""
 
 from __future__ import annotations
 
@@ -24,8 +24,11 @@ from cuddhelmholtz_tpu_torch.utils import spans
 CELL = "ddh_structured_matrix_free.rhs_stream"
 MS = 1_000_000
 NAMES = ("matvecs_per_request.direct", "k1_ms_per_launch.direct", "k1_bound_pct.direct",
-         "k1_window_pct.direct", "device_idle_pct.direct", "direct_apply_pct.direct")
-TRACED = NAMES[1:]  # every reader but the per-request matvecs needs the trace
+         "k1_window_pct.direct", "device_idle_pct.direct", "direct_apply_pct.direct",
+         "graphed_step_pct.direct")
+# the readers of the trace and of the apply counter; the graphed-step share,
+# a counter of the Krylov step, has its own tests (test_bench_graphed_step.py)
+TRACED = NAMES[1:6]
 K1_FLOP = 67e12 * 0.0005  # a tenth of the bound's work for 5 ms of K1: 10 %
 
 
@@ -76,7 +79,8 @@ def traced_run(monkeypatch, counts) -> Run:
 
 
 DIRECT = {"ddh.action.direct": 7, "k1.launches.sparse_shared": 3, "k1.launches.mma_shared": 1,
-          "k1.flop": K1_FLOP, "k1.rows": 4096, "gmres.host_syncs": 9}
+          "k1.flop": K1_FLOP, "k1.rows": 4096, "gmres.host_syncs": 9,
+          "gmres.step.graphed": 6, "gmres.step.eager": 2}
 
 
 def test_each_reader_on_a_synthetic_trace_and_recording(monkeypatch):
@@ -88,6 +92,7 @@ def test_each_reader_on_a_synthetic_trace_and_recording(monkeypatch):
     assert read["k1_window_pct.direct"] == pytest.approx(50.0)
     assert read["device_idle_pct.direct"] == pytest.approx(100 * (1 - 6 / 10))
     assert read["direct_apply_pct.direct"] == pytest.approx(100.0)
+    assert read["graphed_step_pct.direct"] == pytest.approx(75.0)
 
 
 @pytest.mark.parametrize("graphed, eager, want", [(0, 0, 100.0), (3, 0, 70.0), (1, 2, 70.0)])

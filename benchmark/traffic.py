@@ -17,8 +17,9 @@ shares, and the sources sit at fixed sites (a Halton sequence over
 its sources are.  The seed moves each source within ``jitter`` of its site,
 draws its amplitude and sign, draws the models' bumps, and orders the pool.
 Requests are served round-robin from the pool in a closed loop.  Everything
-is made on the device from the seed, in the canonical node numbering of
-``reference.grid.Grid``.
+is made on the device from the seed, at the nodes and with the lumped mass
+of the cell's grid (``cell.grid()``, the protocol in ``spec.py``), in its
+canonical numbering.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .reference.grid import Grid, bumped_speed, gaussians
+from .reference.grid import bumped_speed, gaussians
 
 
 @dataclass
@@ -61,7 +62,7 @@ def halton(n: int) -> np.ndarray:
     return out
 
 
-def make_pool(cell, seed: int, grid: Grid, device) -> list[Request]:
+def make_pool(cell, seed: int, grid, device) -> list[Request]:
     traffic, config = cell.traffic, cell.config
     rng = np.random.default_rng(seed)
     kind, n = traffic["request"], int(traffic["pool"])
